@@ -1,0 +1,259 @@
+"""Sparse user-item interaction datasets (numpy, host side).
+
+The port's copy of cdae_tpu/data/dataset.py, restricted to what serving
+needs: the COO ``Interactions`` container, its CSR and padded views, the
+per-user split and the two built-in text parsers. Loading and CSR building
+are pure Python/numpy (no native helper library), and ``split_by_user``
+draws from the same seeded numpy stream as cdae_tpu, so both packages
+produce the same split from the same data and seed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+
+from cdae_tpu_torch.data.vocab import Vocab
+
+LineParser = Callable[[str], Optional[Tuple[str, str, str]]]
+
+
+def default_line_parser(line: str) -> Optional[Tuple[str, str, str]]:
+    """`user item [rating]` whitespace-separated; implicit rating=1."""
+    parts = line.split()
+    if len(parts) < 2:
+        return None
+    return parts[0], parts[1], "1"
+
+
+def movielens_line_parser(line: str) -> Optional[Tuple[str, str, str]]:
+    """`user::item::rating::timestamp` (MovieLens format)."""
+    parts = line.split("::")
+    if len(parts) < 3:
+        return None
+    return parts[0], parts[1], parts[2]
+
+
+@dataclasses.dataclass
+class CSR:
+    """Per-key compressed row view: ``indices[indptr[k]:indptr[k+1]]``."""
+
+    indptr: np.ndarray  # (num_keys + 1,) int64
+    indices: np.ndarray  # (nnz,) int32
+    values: np.ndarray  # (nnz,) float32
+
+    def row_lengths(self) -> np.ndarray:
+        return np.diff(self.indptr)
+
+
+@dataclasses.dataclass
+class PaddedUserBatch:
+    """Padded per-user interaction lists: items sorted ascending per user,
+    padded with ``num_items``."""
+
+    uids: np.ndarray  # (U,) int32
+    items: np.ndarray  # (U, L) int32, padded with num_items
+    ratings: np.ndarray  # (U, L) float32, 0 at padding
+    mask: np.ndarray  # (U, L) bool
+    lengths: np.ndarray  # (U,) int32
+    num_items: int
+
+    @property
+    def num_users(self) -> int:
+        return self.uids.shape[0]
+
+    @property
+    def max_len(self) -> int:
+        return self.items.shape[1]
+
+
+class Interactions:
+    """A user-item interaction dataset (COO layout + shared dims)."""
+
+    def __init__(
+        self,
+        users: np.ndarray,
+        items: np.ndarray,
+        ratings: np.ndarray,
+        num_users: int,
+        num_items: int,
+        user_vocab: Optional[Vocab] = None,
+        item_vocab: Optional[Vocab] = None,
+    ):
+        self.users = np.asarray(users, dtype=np.int32)
+        self.items = np.asarray(items, dtype=np.int32)
+        self.ratings = np.asarray(ratings, dtype=np.float32)
+        if not (len(self.users) == len(self.items) == len(self.ratings)):
+            raise ValueError("users/items/ratings length mismatch")
+        self.num_users = int(num_users)
+        self.num_items = int(num_items)
+        self.user_vocab = user_vocab
+        self.item_vocab = item_vocab
+        self._csr_user: Optional[CSR] = None
+
+    @classmethod
+    def from_text(
+        cls,
+        path: str,
+        parser: LineParser = default_line_parser,
+        skip_header: bool = False,
+    ) -> "Interactions":
+        """Stream a text file through ``parser``, skipping blank lines."""
+        user_vocab, item_vocab = Vocab(), Vocab()
+        users, items, ratings = [], [], []
+        with open(path, "r") as f:
+            for lineno, line in enumerate(f):
+                if skip_header and lineno == 0:
+                    continue
+                line = line.strip()
+                if not line:
+                    continue
+                parsed = parser(line)
+                if parsed is None:
+                    continue
+                u, i, r = parsed
+                users.append(user_vocab.add(u))
+                items.append(item_vocab.add(i))
+                ratings.append(float(r))
+        return cls(
+            np.asarray(users, dtype=np.int32),
+            np.asarray(items, dtype=np.int32),
+            np.asarray(ratings, dtype=np.float32),
+            num_users=len(user_vocab),
+            num_items=len(item_vocab),
+            user_vocab=user_vocab,
+            item_vocab=item_vocab,
+        )
+
+    @classmethod
+    def from_arrays(
+        cls,
+        users: np.ndarray,
+        items: np.ndarray,
+        ratings: Optional[np.ndarray] = None,
+        num_users: Optional[int] = None,
+        num_items: Optional[int] = None,
+    ) -> "Interactions":
+        users = np.asarray(users)
+        items = np.asarray(items)
+        if ratings is None:
+            ratings = np.ones(len(users), dtype=np.float32)
+        if num_users is None:
+            num_users = int(users.max()) + 1 if len(users) else 0
+        if num_items is None:
+            num_items = int(items.max()) + 1 if len(items) else 0
+        return cls(users, items, ratings, num_users, num_items)
+
+    def __len__(self) -> int:
+        return len(self.users)
+
+    def __repr__(self) -> str:
+        return (
+            f"Interactions(n={len(self)}, users={self.num_users}, "
+            f"items={self.num_items})"
+        )
+
+    def csr(self) -> CSR:
+        """Per-user sorted item lists."""
+        if self._csr_user is None:
+            self._csr_user = _build_csr(
+                self.users, self.items, self.ratings, self.num_users
+            )
+        return self._csr_user
+
+    def padded(self) -> PaddedUserBatch:
+        """Padded per-user item lists for ALL users (0..num_users-1); items
+        ascending in each row, padded with ``num_items``."""
+        items, ratings, mask, lengths = rows_from_csr(
+            self.csr(), np.arange(self.num_users), self.num_items
+        )
+        return PaddedUserBatch(
+            uids=np.arange(self.num_users, dtype=np.int32),
+            items=items,
+            ratings=ratings,
+            mask=mask,
+            lengths=lengths,
+            num_items=self.num_items,
+        )
+
+    def split_by_user(
+        self, test_ratio: float, seed: int = 0
+    ) -> Tuple["Interactions", "Interactions"]:
+        """Per-user leave-``test_ratio``-out split: bucket instances by
+        user, shuffle each bucket, the first floor(len*ratio) go to test,
+        the rest to train; both splits keep the full dimensions. Same
+        draws, in the same order, as cdae_tpu's split."""
+        rng = np.random.default_rng(seed)
+        if self.num_users > 100_000:
+            # vectorized protocol for huge user counts: random order within
+            # each user via one lexsort
+            n = len(self)
+            order = np.lexsort((rng.random(n), self.users))
+            counts = np.bincount(self.users, minlength=self.num_users)
+            indptr = np.zeros(self.num_users + 1, dtype=np.int64)
+            indptr[1:] = np.cumsum(counts)
+            pos = np.arange(n) - indptr[self.users[order]]
+            k = np.floor(counts * test_ratio).astype(np.int64)
+            is_test = pos < k[self.users[order]]
+            te = order[is_test]
+            tr = order[~is_test]
+            rng.shuffle(tr)
+            rng.shuffle(te)
+            return self._take(tr), self._take(te)
+        order = np.argsort(self.users, kind="stable")
+        counts = np.bincount(self.users, minlength=self.num_users)
+        indptr = np.zeros(self.num_users + 1, dtype=np.int64)
+        indptr[1:] = np.cumsum(counts)
+        train_idx, test_idx = [], []
+        for u in range(self.num_users):
+            bucket = order[indptr[u] : indptr[u + 1]].copy()
+            rng.shuffle(bucket)
+            k = int(len(bucket) * test_ratio)
+            test_idx.append(bucket[:k])
+            train_idx.append(bucket[k:])
+        tr = np.concatenate(train_idx) if train_idx else np.empty(0, np.int64)
+        te = np.concatenate(test_idx) if test_idx else np.empty(0, np.int64)
+        rng.shuffle(tr)
+        rng.shuffle(te)
+        return self._take(tr), self._take(te)
+
+    def _take(self, idx: np.ndarray) -> "Interactions":
+        return Interactions(
+            self.users[idx], self.items[idx], self.ratings[idx],
+            self.num_users, self.num_items, self.user_vocab, self.item_vocab,
+        )
+
+
+def rows_from_csr(csr: CSR, users: np.ndarray, num_items: int):
+    """Padded (len(users), L) item/rating/mask rows for specific users,
+    straight from CSR. L = max row length among them (min 1); items are
+    padded with ``num_items``. Returns (items, ratings, mask, lengths)."""
+    lengths = np.diff(csr.indptr)[users].astype(np.int32)
+    L = max(int(lengths.max()) if len(lengths) else 1, 1)
+    n = len(users)
+    items = np.full((n, L), num_items, dtype=np.int32)
+    ratings = np.zeros((n, L), dtype=np.float32)
+    counts = lengths.astype(np.int64)
+    total = int(counts.sum())
+    if total:
+        row_of = np.repeat(np.arange(n), counts)
+        cum0 = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        pos = np.arange(total) - np.repeat(cum0, counts)
+        src = np.repeat(csr.indptr[users], counts) + pos
+        items[row_of, pos] = csr.indices[src]
+        ratings[row_of, pos] = csr.values[src]
+    mask = np.arange(L)[None, :] < lengths[:, None]
+    return items, ratings, mask, lengths
+
+
+def _build_csr(
+    keys: np.ndarray, vals: np.ndarray, ratings: np.ndarray, num_keys: int
+) -> CSR:
+    # single lexsort: primary key = row, secondary = column (ascending)
+    order = np.lexsort((vals, keys))
+    indptr = np.zeros(num_keys + 1, dtype=np.int64)
+    indptr[1:] = np.cumsum(np.bincount(keys, minlength=num_keys))
+    return CSR(indptr=indptr, indices=vals[order].astype(np.int32),
+               values=ratings[order].astype(np.float32))

@@ -27,6 +27,11 @@ def pytest_configure(config):
         "slow: multi-process / long-running tests (run explicitly with "
         "-m slow or by file)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA GPU; skips when torch.cuda.is_available() is "
+        "False",
+    )
 
 
 @pytest.fixture
