@@ -1,4 +1,4 @@
-"""CLI of the port (port of cdae_tpu/cli.py, serving tasks).
+"""CLI of the port (port of cdae_tpu/cli.py, CDAE tasks).
 
 The flag surface is cdae_tpu's, so command lines carry over, plus
 ``--device`` (default ``cuda``; ``--device cpu`` is the only way onto the
@@ -6,13 +6,20 @@ CPU -- a CUDA request without a GPU raises). Tasks:
 
   prepare  -- parse the text input, build vocabs, write the cache
   split    -- per-user split of the cache, write train/test caches
+  train    -- load --cache_file, split it (--test_ratio, --seed), train
+              --method CDAE with Solver.train, evaluating every
+              --eval_iters; --init_checkpoint resumes, --checkpoint /
+              --checkpoint_every write checkpoints. cdae_tpu trains the
+              Popularity baseline first, which is not ported yet (ROADMAP
+              A9): pass --skip_popularity.
   test     -- load split caches, restore --init_checkpoint (a cdae_tpu or
               cdae_tpu_torch checkpoint), evaluate --method CDAE
 
-``train`` and ``sweep``, and every method but CDAE, come with later
-slices of the port and exit with a message saying so.
+``sweep``, and every method but CDAE, come with later slices of the port
+and exit with a message saying so.
 
-Run: ``python -m cdae_tpu_torch.cli --task test --method CDAE ...``
+Run: ``python -m cdae_tpu_torch.cli --task train --method CDAE
+--skip_popularity ...``
 """
 
 from __future__ import annotations
@@ -49,7 +56,8 @@ def _booly(v: str) -> bool:
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cdae_tpu_torch",
-        description="CDAE top-N serving on PyTorch/CUDA (cdae_tpu port)",
+        description="CDAE training and top-N serving on PyTorch/CUDA "
+                    "(cdae_tpu port)",
     )
     # -- cdae_tpu's flag surface --
     p.add_argument("--input_file", default="./yelp_10core.txt")
@@ -92,7 +100,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="RANKING relevance cut for a hit")
     p.add_argument("--checkpoint", default="")
     p.add_argument("--init_checkpoint", default="",
-                   help="restore params before testing")
+                   help="test: restore params; train: resume from it")
     p.add_argument("--checkpoint_every", type=int, default=0)
     p.add_argument("--guard_nan", type=_booly, default=False)
     p.add_argument("--loss_sample", type=int, default=0)
@@ -105,7 +113,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--epoch_chunk", type=int, default=0)
     p.add_argument("--fast_rng", type=_booly, default=False)
     p.add_argument("--bf16_compute", type=_booly, default=False,
-                   help="bf16 matmul operands in the plain encode")
+                   help="bf16 matmul operands, f32 sums")
     p.add_argument("--skip_popularity", action="store_true")
     p.add_argument("--sim_type", default="JACCARD")
     p.add_argument("--sim_topk", type=int, default=50)
@@ -146,10 +154,55 @@ def build_model(args):
     ), device=args.device)
 
 
+def _eval_types(args) -> list:
+    from cdae_tpu_torch.evaluation import Evaluation
+
+    eval_types = [e.strip() for e in args.eval.split(",") if e.strip()]
+    if args.rel_threshold != 4.0:
+        eval_types = [
+            Evaluation.create(e, rel_threshold=args.rel_threshold)
+            if e.upper() == "RANKING" else e
+            for e in eval_types
+        ]
+    return eval_types
+
+
+def train(args):
+    """The train task: split ``--cache_file``, train with Solver.train,
+    return the Solver (its ``history`` holds every eval row, iteration 0
+    included)."""
+    from cdae_tpu_torch.solver.solver import Solver
+
+    if not args.skip_popularity:
+        raise SystemExit(
+            "--task train trains the Popularity baseline first, as cdae_tpu "
+            f"does; Popularity (ROADMAP A9) {_LATER}. Pass --skip_popularity"
+        )
+    model = build_model(args)  # resolves --device first: fails fast
+    data = data_io.load_interactions(args.cache_file)
+    logger.info("loaded %s", data)
+    train_data, test = data.split_by_user(args.test_ratio, seed=args.seed)
+    logger.info("train %s / test %s", train_data, test)
+    solver = Solver(model, max_iteration=args.max_iters,
+                    eval_iterations=args.eval_iters, seed=args.seed,
+                    trace_dir=args.trace_dir or None, guard=args.guard_nan,
+                    loss_sample_size=args.loss_sample)
+    solver.train(
+        train_data, test, _eval_types(args),
+        resume_from=args.init_checkpoint or None,
+        checkpoint_path=args.checkpoint or None,
+        checkpoint_every=args.checkpoint_every,
+    )
+    if args.checkpoint:
+        logger.info("checkpoint -> %s", args.checkpoint)
+    return solver
+
+
 def run(argv: Optional[List[str]] = None) -> Dict[str, float]:
-    """Run one task; returns the test metrics ({} for prepare/split)."""
+    """Run one task; returns the test metrics (test), the last eval row
+    (train), or {} (prepare/split)."""
     args = build_arg_parser().parse_args(argv)
-    if args.task in ("train", "sweep"):
+    if args.task == "sweep":
         raise SystemExit(f"--task {args.task} {_LATER}")
     if args.task == "prepare":
         data = Interactions.from_text(args.input_file, PARSERS[args.parser])
@@ -160,32 +213,28 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, float]:
     if args.task == "split":
         data = data_io.load_interactions(args.cache_file)
         logger.info("loaded %s", data)
-        train, test = data.split_by_user(args.test_ratio, seed=args.seed)
-        logger.info("train %s / test %s", train, test)
-        data_io.save_interactions(train, args.train_cache_file)
+        train_data, test = data.split_by_user(args.test_ratio, seed=args.seed)
+        logger.info("train %s / test %s", train_data, test)
+        data_io.save_interactions(train_data, args.train_cache_file)
         data_io.save_interactions(test, args.test_cache_file)
         return {}
 
-    from cdae_tpu_torch.evaluation import Evaluation
+    if args.task == "train":
+        return train(args).history[-1]
+
     from cdae_tpu_torch.solver.solver import Solver
     from cdae_tpu_torch.utils import checkpoint as ckpt
 
     model = build_model(args)  # resolves --device first: fails fast
-    eval_types = [e.strip() for e in args.eval.split(",") if e.strip()]
-    if args.rel_threshold != 4.0:
-        eval_types = [
-            Evaluation.create(e, rel_threshold=args.rel_threshold)
-            if e.upper() == "RANKING" else e
-            for e in eval_types
-        ]
-    train = data_io.load_interactions(args.train_cache_file)
+    eval_types = _eval_types(args)
+    train_data = data_io.load_interactions(args.train_cache_file)
     test = data_io.load_interactions(args.test_cache_file)
-    logger.info("train %s / test %s", train, test)
+    logger.info("train %s / test %s", train_data, test)
     solver = Solver(model)
-    solver.state = model.reset(train, seed=args.seed)
+    solver.state = model.reset(train_data, seed=args.seed)
     if args.init_checkpoint:
         ckpt.load_checkpoint(args.init_checkpoint, solver.state)
-    return solver.test(test, eval_types, train_data=train)
+    return solver.test(test, eval_types, train_data=train_data)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

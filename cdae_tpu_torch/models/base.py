@@ -1,9 +1,10 @@
-"""Model protocol + user batching (port of cdae_tpu/models/base.py, the
-parts serving needs).
+"""Model protocol + user batching (port of cdae_tpu/models/base.py).
 
 The protocol the solver and evaluators rely on:
 
   reset(data, seed)          -> state (parameters on the model's device)
+  train_one_iteration(state, seed) -> state (one epoch; params in place)
+  current_loss(state, sample_size) = data_loss + penalty_loss
   batch_scores(state, uids, rated_items, rated_mask) -> (B, num_items)
   batch_topk(state, uids, rated_items, rated_mask, k) -> (B, k) ids | None
   predict(state, users, items) -> per-pair predictions
@@ -137,6 +138,24 @@ class RecsysModel:
 
     def reset(self, data: Interactions, seed: int = 0):
         raise NotImplementedError
+
+    def train_one_iteration(self, state, seed: int = 0):
+        """One epoch; ``seed`` is the solver's, the step seeds derive from
+        it and ``state.step``."""
+        raise NotImplementedError
+
+    def current_loss(self, state, sample_size: int = 0) -> float:
+        """data_loss + penalty_loss (``sample_size`` goes to data_loss)."""
+        return self.data_loss(state, sample_size) + self.penalty_loss(state)
+
+    def data_loss(self, state, sample_size: int = 0) -> float:
+        """Training-data loss estimate. ``sample_size`` > 0 asks for an
+        estimate over that many instances, 0 for the full dataset; models
+        that do not subsample ignore it, as in cdae_tpu."""
+        return 0.0
+
+    def penalty_loss(self, state) -> float:
+        return 0.0
 
     def batch_scores(self, state, uids, rated_items, rated_mask):
         """Full-catalog scores for a user minibatch; (B, num_items)."""

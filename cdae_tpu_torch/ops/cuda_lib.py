@@ -2,10 +2,11 @@
 
 ``nvcc`` compiles every ``cdae_tpu_torch/csrc/*.cu`` into one shared library
 with a plain C interface for ``sm_90a`` (Hopper), and ctypes loads it. The
-library is built on first use into ``build/cdae_tpu_torch/`` beside the
-package (listed in .gitignore) under a name keyed by a hash of the sources
-and flags, so an edited kernel is rebuilt and an unchanged one is reused.
-Nothing here runs at import time.
+sources compile in parallel, one nvcc process each, and are then linked.
+The library is built on first use into ``build/cdae_tpu_torch/`` beside the
+package (listed in .gitignore) under a name keyed by a hash of the sources,
+the headers they include (``*.cuh``) and the flags, so an edited kernel is
+rebuilt and an unchanged one is reused. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Optional
@@ -26,13 +28,13 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of the kernels' entry points (csrc/*.cu); each returns the
 # cudaError_t of its launch
 _SIGNATURES = {
@@ -41,6 +43,9 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _P),
     "cdae_fused_topk_csr": (_P, _P, _P, _P, _I, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P),
+    "cdae_hw_uniform": (_P, _I, _I, _I, _I, _P),
+    "cdae_adagrad_update": (_P, _P, _P, _I, _F, _F, _I, _P),
+    "cdae_fused_step": (_P,) * 14 + (_I,) * 4 + (_F,) * 5 + (_I,) * 5 + (_P,),
 }
 
 _lock = threading.Lock()
@@ -63,7 +68,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcdae_kernels_{h.hexdigest()[:16]}.so"
@@ -77,18 +82,34 @@ def build() -> str:
     if out.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        if tmp.exists():
-            tmp.unlink()
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        tmp = Path(tmpdir)
+        sources = sorted(CSRC.glob("*.cu"))
+        objects = [tmp / f"{src.stem}.o" for src in sources]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objects)
+        ]
+        logs = [p.communicate()[0] for p in procs]  # waits for every one
+        failed = [f"{src.name}:\n{log}" for src, p, log
+                  in zip(sources, procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        link = subprocess.run(
+            [nvcc, "-gencode=arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp / out.name), *map(str, objects)],
+            capture_output=True, text=True,
         )
-    os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
-    return proc.stdout + proc.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        # atomic: a concurrent build never loads half a file
+        os.replace(tmp / out.name, out)
+    return "".join(logs) + link.stdout + link.stderr
 
 
 def lib() -> ctypes.CDLL:

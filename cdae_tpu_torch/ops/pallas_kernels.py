@@ -1,6 +1,6 @@
-"""The serving kernels, each beside its plain PyTorch version.
+"""The hand-written kernels, each beside its plain PyTorch version.
 
-Port of the serving part of cdae_tpu/ops/pallas_kernels.py:
+Port of cdae_tpu/ops/pallas_kernels.py (serving and training parts):
 
   decode_scores          z @ W^T + b'                    csrc/decode_scores.cu
   fused_topk_scores      decode + rated mask (int8 rows) csrc/fused_topk.cu
@@ -10,6 +10,13 @@ Port of the serving part of cdae_tpu/ops/pallas_kernels.py:
   streaming_topk_scores  plain torch loop over catalog blocks (an XLA scan in
                          cdae_tpu, not a kernel); the reference both fused
                          top-k kernels are held against
+  hw_uniform             (rows, cols) uniforms in [0, 1) csrc/hw_uniform.cu
+                         from a counter hash of (seed,
+                         row, col, draw)
+  adagrad_update         in-place a += g^2;              csrc/adagrad_update.cu
+                         p -= lr*g/(beta+sqrt(a))
+
+The fused dense train step (B4) has its own module, ops/cdae_fused.py.
 
 Every kernel wrapper routes by the device of the tensors it is given: on a
 CUDA tensor it launches the hand-written kernel (built from
@@ -312,3 +319,130 @@ def fused_topk_scores_csr(
 
 
 fused_topk_scores_csr.launches = 0
+
+
+# ------------------------------------------------------------ uniforms ------
+
+_MASK32 = 0xFFFFFFFF
+# the murmur-style mixing constants of cdae_tpu/ops/cdae_fused.py
+# _hash_uniform, as unsigned 32-bit values (its comment's 0x9E3779B1 is a
+# typo: the constant it uses, -1640531527, is 0x9E3779B9)
+_HASH_ROW = 0x9E3779B9
+_HASH_COL = 0x85EBCA77
+_HASH_M1 = 0x85EBCA6B
+_HASH_M2 = 0xC2B2AE35
+
+
+def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """(x * m) mod 2**32 for int64 x in [0, 2**32), without int64
+    overflow: the high and low 16 bits of x are multiplied apart."""
+    lo = (x & 0xFFFF) * m
+    hi = ((x >> 16) * m) & 0xFFFF
+    return (lo + (hi << 16)) & _MASK32
+
+
+def hw_uniform_plain(seed: int, shape: Tuple[int, int], draw: int = 0, *,
+                     device) -> torch.Tensor:
+    """Plain version of ``hw_uniform``: the same 32-bit arithmetic on int64
+    tensors, masked to 32 bits (logical shifts, since every value is
+    non-negative)."""
+    rows, cols = shape
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
+    x = ((int(seed) & _MASK32) + _mul32(r, _HASH_ROW) + _mul32(c, _HASH_COL)
+         + ((int(draw) * _HASH_M2) & _MASK32)) & _MASK32
+    x = x ^ (x >> 16)
+    x = _mul32(x, _HASH_M1)
+    x = x ^ (x >> 13)
+    x = _mul32(x, _HASH_M2)
+    x = x ^ (x >> 16)
+    return (x & 0xFFFFFF).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def hw_uniform(seed: int, shape: Tuple[int, int], draw: int = 0, *,
+               device) -> torch.Tensor:
+    """(rows, cols) float32 uniforms in [0, 1) at 24-bit resolution, on
+    ``device``. Element (r, c) is the low 24 bits of a murmur mix of
+    (seed, r, c, draw), times 2**-24: a pure function of its coordinates,
+    so any tiling draws the same numbers and the fused step (B4) regenerates
+    exactly these masks. ``draw`` separates independent draws of one step
+    (0: corruption, 1: negatives). cdae_tpu draws from the TPU's hardware
+    PRNG here, whose bits cannot be reproduced; this is its tiling-invariant
+    hash stream (cdae_tpu/ops/cdae_fused.py _hash_uniform), bit for bit."""
+    device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel or plain version for {device}")
+    if device.type == "cpu":
+        return hw_uniform_plain(seed, shape, draw, device=device)
+    from cdae_tpu_torch.ops import cuda_lib
+
+    rows, cols = shape
+    if rows < 0 or cols < 0 or rows * cols >= 2**31:
+        raise ValueError(f"hw_uniform shape {shape}: the kernel takes "
+                         "0 <= rows*cols < 2**31")
+    out = torch.empty((rows, cols), dtype=torch.float32, device=device)
+    if rows * cols == 0:
+        return out
+    seed32 = ((int(seed) + 2**31) & _MASK32) - 2**31  # as a C int
+    rc = cuda_lib.lib().cdae_hw_uniform(out.data_ptr(), rows, cols, seed32,
+                                        int(draw), _stream(device))
+    cuda_lib.check(rc, "hw_uniform")
+    hw_uniform.launches += 1
+    return out
+
+
+hw_uniform.launches = 0
+
+
+# ------------------------------------------------------------- adagrad ------
+
+def adagrad_update_plain(param: torch.Tensor, acc: torch.Tensor,
+                         grad: torch.Tensor, lr: float, beta: float = 0.0):
+    """Plain version of ``adagrad_update``: a += g*g, then
+    p -= lr*g / (beta + sqrt(a)) in f32, each operation rounded on its
+    own (the kernel's order)."""
+    acc += grad * grad
+    step = lr * grad / (beta + torch.sqrt(acc))
+    if param.dtype == torch.float32:
+        param -= step
+    else:
+        param.copy_(param.to(torch.float32) - step)
+    return param, acc
+
+
+def adagrad_update(param: torch.Tensor, acc: torch.Tensor, grad: torch.Tensor,
+                   lr: float, beta: float = 0.0):
+    """One AdaGrad step IN PLACE over (N, D) or (N,): ``acc`` (f32) +=
+    grad**2, then ``param`` (f32 or bf16, f32 arithmetic) -= lr * grad /
+    (beta + sqrt(acc)). ``grad`` is f32. Returns (param, acc), the same
+    tensors. Bit-equal to the plain version: the kernel rounds every
+    operation on its own (no contracted FMA)."""
+    if not _on_cuda(param):
+        return adagrad_update_plain(param, acc, grad, lr, beta)
+    from cdae_tpu_torch.ops import cuda_lib
+
+    dev = param.device
+    shape = tuple(param.shape)
+    if param.dim() not in (1, 2):
+        raise ValueError(f"param has shape {shape}; expected (N, D) or (N,)")
+    if param.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"param has dtype {param.dtype}, expected float32 "
+                        "or bfloat16")
+    _require(param, "param", param.dtype, shape, dev)
+    _require(acc, "acc", torch.float32, shape, dev)
+    _require(grad, "grad", torch.float32, shape, dev)
+    n = param.numel()
+    if n >= 2**31:
+        raise ValueError(f"param has {n} elements; the kernel takes < 2**31")
+    if n == 0:
+        return param, acc
+    rc = cuda_lib.lib().cdae_adagrad_update(
+        param.data_ptr(), acc.data_ptr(), grad.data_ptr(), n, float(lr),
+        float(beta), int(param.dtype == torch.bfloat16), _stream(dev),
+    )
+    cuda_lib.check(rc, "adagrad_update")
+    adagrad_update.launches += 1
+    return param, acc
+
+
+adagrad_update.launches = 0

@@ -52,7 +52,10 @@ def test_later_tasks_and_methods_exit_with_message():
     from cdae_tpu_torch import cli
 
     with pytest.raises(SystemExit, match="later slice"):
-        cli.run(["--task", "train", "--method", "CDAE"])
+        cli.run(["--task", "sweep", "--method", "CDAE"])
+    # train runs Popularity first unless told not to; Popularity is later
+    with pytest.raises(SystemExit, match="Popularity.*later slice"):
+        cli.run(["--task", "train", "--method", "CDAE", "--device", "cpu"])
     with pytest.raises(SystemExit, match="later slice"):
         cli.run(["--task", "test", "--method", "BPR", "--device", "cpu"])
 
