@@ -1,4 +1,4 @@
-"""CLI of the port (port of cdae_tpu/cli.py, CDAE tasks).
+"""CLI of the port (port of cdae_tpu/cli.py, the CDAE and WARP tasks).
 
 The flag surface is cdae_tpu's, so command lines carry over, plus
 ``--device`` (default ``cuda``; ``--device cpu`` is the only way onto the
@@ -7,18 +7,19 @@ CPU -- a CUDA request without a GPU raises). Tasks:
   prepare  -- parse the text input, build vocabs, write the cache
   split    -- per-user split of the cache, write train/test caches
   train    -- load --cache_file, split it (--test_ratio, --seed), train
-              --method CDAE with Solver.train, evaluating every
+              --method CDAE or WARP with Solver.train, evaluating every
               --eval_iters; --init_checkpoint resumes, --checkpoint /
               --checkpoint_every write checkpoints. cdae_tpu trains the
               Popularity baseline first, which is not ported yet (ROADMAP
               A9): pass --skip_popularity.
   test     -- load split caches, restore --init_checkpoint (a cdae_tpu or
-              cdae_tpu_torch checkpoint), evaluate --method CDAE
+              cdae_tpu_torch checkpoint), evaluate --method CDAE or WARP
 
-``sweep``, and every method but CDAE, come with later slices of the port
-and exit with a message saying so.
+``sweep``, and every method but CDAE and WARP (the other MF models, ALS,
+FISM, the linear and neighbour models, Popularity), come with later slices
+of the port and exit with a message saying so.
 
-Run: ``python -m cdae_tpu_torch.cli --task train --method CDAE
+Run: ``python -m cdae_tpu_torch.cli --task train --method WARP
 --skip_popularity ...``
 """
 
@@ -56,8 +57,8 @@ def _booly(v: str) -> bool:
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cdae_tpu_torch",
-        description="CDAE training and top-N serving on PyTorch/CUDA "
-                    "(cdae_tpu port)",
+        description="CDAE and WARP training and top-N serving on "
+                    "PyTorch/CUDA (cdae_tpu port)",
     )
     # -- cdae_tpu's flag surface --
     p.add_argument("--input_file", default="./yelp_10core.txt")
@@ -133,15 +134,34 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def build_model(args):
-    """--method dispatch; the port serves CDAE."""
-    from cdae_tpu_torch.models.cdae import CDAE, CDAEConfig
+    """--method dispatch over the port's ``MODEL_REGISTRY``; the config
+    comes from the flags by the model's config class, as in cdae_tpu."""
+    from cdae_tpu_torch.models import (LATER_MODELS, MODEL_REGISTRY,
+                                       CDAEConfig, MFConfig)
 
-    if args.method.upper() != "CDAE":
-        raise SystemExit(f"--method {args.method} {_LATER}")
+    method = args.method.upper()
+    if method not in MODEL_REGISTRY:
+        entry = LATER_MODELS.get(method)
+        raise SystemExit(
+            f"--method {args.method} {_LATER}"
+            + (f" (ROADMAP {entry})" if entry else "")
+            + f"; ported: {', '.join(MODEL_REGISTRY)}")
     if args.sharded:
         raise SystemExit(f"--sharded {_LATER}")
     dense = None if args.dense_mode == "auto" else _booly(args.dense_mode)
-    return CDAE(CDAEConfig(
+    cls, cfg_cls = MODEL_REGISTRY[method]
+    if cfg_cls is MFConfig:
+        return cls(MFConfig(
+            learn_rate=args.learn_rate, beta=args.beta, lambda_=args.lambda_,
+            loss=args.loss_type, num_dim=args.num_dim, num_neg=args.num_neg,
+            using_bias_term=args.bias, using_adagrad=args.adagrad,
+            batch_size=args.batch_size, dense_mode=dense,
+            warp_pool=(args.warp_pool or None),
+            num_shared_neg=args.num_shared_neg,
+            epoch_chunk=(args.epoch_chunk or None),
+            fast_rng=(True if args.fast_rng else None),
+        ), device=args.device)
+    return cls(CDAEConfig(
         lambda_=args.lambda_, learn_rate=args.learn_rate,
         loss=args.loss_type, num_dim=args.num_dim,
         using_adagrad=args.adagrad, corruption_ratio=args.cratio,

@@ -1,5 +1,43 @@
-"""Models of the port: CDAE (serving)."""
+"""Models of the port: CDAE (dense training and serving) and WARP (dense
+path training and serving), with cdae_tpu's registry.
 
+``create_model(name, **cfg)`` mirrors cdae_tpu's (the reference app's
+``--method`` dispatch). Every other model of cdae_tpu's zoo raises
+NotImplementedError naming the ROADMAP entry of the slice it comes with.
+"""
+
+from cdae_tpu_torch.models.base import ModelState, RecsysModel
 from cdae_tpu_torch.models.cdae import CDAE, CDAEConfig
+from cdae_tpu_torch.models.mf import WARP, MFConfig
 
-__all__ = ["CDAE", "CDAEConfig"]
+MODEL_REGISTRY = {
+    "CDAE": (CDAE, CDAEConfig),
+    "WARP": (WARP, MFConfig),
+}
+
+# cdae_tpu's other registry names -> the ROADMAP entry that ports them
+LATER_MODELS = {
+    "PMF": "A8", "IMF": "A8", "BPR": "A8",
+    "ALS": "A9", "WRMF": "A9", "FISM": "A9", "FISMPAIR": "A9",
+    "NEGMF": "A9", "LINEAR": "A9", "FM": "A9", "POP": "A9", "ITEMCF": "A9",
+    "USERCF": "A9",
+}
+
+
+def create_model(name: str, device="cuda", **cfg):
+    """Instantiate a model by registry name with config kwargs, on
+    ``device`` (default cuda)."""
+    key = name.upper()
+    if key in LATER_MODELS:
+        raise NotImplementedError(
+            f"model {name!r} is not ported to cdae_tpu_torch yet: it comes "
+            f"with a later slice (ROADMAP {LATER_MODELS[key]})")
+    if key not in MODEL_REGISTRY:
+        raise ValueError(
+            f"unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}")
+    cls, _ = MODEL_REGISTRY[key]
+    return cls(device=device, **cfg)
+
+
+__all__ = ["RecsysModel", "ModelState", "MODEL_REGISTRY", "LATER_MODELS",
+           "create_model", "CDAE", "CDAEConfig", "WARP", "MFConfig"]

@@ -16,6 +16,7 @@ import dataclasses
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
 from cdae_tpu_torch.data.dataset import Interactions, PaddedUserBatch
 
@@ -118,6 +119,18 @@ def iter_user_batches_csr(
         )
 
 
+def resolve_device(device) -> torch.device:
+    """torch.device for ``device``; a CUDA device without a usable GPU
+    raises (nothing falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
 @dataclasses.dataclass
 class ModelState:
     """Parameters (a dict of tensors on the model's device) + the host
@@ -132,9 +145,14 @@ class ModelState:
 
 
 class RecsysModel:
-    """Base class; concrete models implement the protocol methods."""
+    """Base class; concrete models implement the protocol methods. Models
+    that hold tensors set ``device``."""
 
     name = "RecsysModel"
+
+    def _tensor(self, x, dtype=None) -> torch.Tensor:
+        """``x`` as a tensor on the model's device."""
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
 
     def reset(self, data: Interactions, seed: int = 0):
         raise NotImplementedError

@@ -20,8 +20,8 @@ uncorrupted input with scale 1 (an empty input when corruption_ratio == 1).
 Random draws. cdae_tpu's threefry and TPU hardware streams cannot be
 reproduced in torch. Every train step takes a 32-bit step seed that is a
 pure host function of (solver seed, ``state.step``, batch index, corruption
-index) -- ``step_seed`` -- so a run resumed from a checkpoint's step replays
-the same draws. With ``fast_rng`` (default on CUDA) the masks come from
+index) -- utils/random.py ``step_seed`` -- so a run resumed from a
+checkpoint's step replays the same draws. With ``fast_rng`` (default on CUDA) the masks come from
 ``hw_uniform`` (a counter hash, the stream cdae_tpu's fused kernel uses off
 the TPU); without it from a ``torch.Generator`` seeded with the step seed.
 The step functions also take injected uniforms, so tests feed them the
@@ -50,6 +50,7 @@ from cdae_tpu_torch.models.base import (
     RecsysModel,
     iter_user_batches,
     iter_user_batches_csr,
+    resolve_device,
 )
 from cdae_tpu_torch.ops.cdae_fused import (
     cdae_dense_step_fused,
@@ -71,6 +72,7 @@ from cdae_tpu_torch.solver.optimizer import (
     dense_adagrad_step,
     row_adagrad_delta,
 )
+from cdae_tpu_torch.utils.random import step_seed
 
 _SPARSE_SLICE = (
     "CDAE training without dense_R (the huge-catalog sparse step, ROADMAP "
@@ -80,7 +82,6 @@ _SPARSE_SLICE = (
 )
 _LOSS_STREAM = -1  # the seed stream of data_loss draws (not the solver's)
 _MASK32 = 0xFFFFFFFF
-_MASK64 = (1 << 64) - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,18 +147,6 @@ def _activation(h: torch.Tensor, linear: bool, tanh: bool) -> torch.Tensor:
     return torch.where(h > 18.0, 1.0, torch.where(h < -18.0, 0.0, s))
 
 
-def resolve_device(device) -> torch.device:
-    """torch.device for ``device``; a CUDA device without a usable GPU
-    raises (nothing falls back to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' to run on the CPU"
-        )
-    return dev
-
-
 class CDAE(RecsysModel):
     name = "CDAE"
 
@@ -172,9 +161,6 @@ class CDAE(RecsysModel):
             self.cfg = dataclasses.replace(self.cfg, fast_rng=on_cuda)
         self.loss = Loss.create(self.cfg.loss)
         self.penalty = Penalty.create(self.cfg.penalty)
-
-    def _tensor(self, x, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=dtype, device=self.device)
 
     # ------------------------------------------------------------- reset ----
     def reset(self, data: Interactions, seed: int = 0) -> CDAEState:
@@ -507,25 +493,6 @@ def _batch_topk_impl(params, uids, rated_items, rated_mask, dense_R, *,
 
 
 # ============================================================ training ====
-
-def _mix64(x: int) -> int:
-    """splitmix64's finalizer over a 64-bit int."""
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
-
-
-def step_seed(seed: int, step: int, batch: int, corruption: int) -> int:
-    """The 32-bit (signed) seed of one train step: a pure function of the
-    solver seed, the epoch (``state.step``), the batch index and the
-    corruption index, so a resumed run replays the unbroken run's draws."""
-    x = _mix64(seed & _MASK64)
-    for v in (step, batch, corruption):
-        x = _mix64(x ^ (v & _MASK64))
-    x >>= 32
-    return x - (1 << 32) if x >= (1 << 31) else x
-
 
 def _draw_uniforms(seed: int, shape, draws, cfg: CDAEConfig, device):
     """(B, I) f32 uniforms of one step seed, one per entry of ``draws``:

@@ -1,6 +1,7 @@
 """The hand-written kernels, each beside its plain PyTorch version.
 
-Port of cdae_tpu/ops/pallas_kernels.py (serving and training parts):
+Port of cdae_tpu/ops/pallas_kernels.py (serving, CDAE and WARP training
+parts):
 
   decode_scores          z @ W^T + b'                    csrc/decode_scores.cu
   fused_topk_scores      decode + rated mask (int8 rows) csrc/fused_topk.cu
@@ -15,6 +16,9 @@ Port of cdae_tpu/ops/pallas_kernels.py (serving and training parts):
                          row, col, draw)
   adagrad_update         in-place a += g^2;              csrc/adagrad_update.cu
                          p -= lr*g/(beta+sqrt(a))
+  warp_violator_select   WARP's per-row count of unrated csrc/warp_select.cu
+                         items scoring above a threshold
+                         + nn uniform picks among them
 
 The fused dense train step (B4) has its own module, ops/cdae_fused.py.
 
@@ -446,3 +450,156 @@ def adagrad_update(param: torch.Tensor, acc: torch.Tensor, grad: torch.Tensor,
 
 
 adagrad_update.launches = 0
+
+
+# ----------------------------------------- WARP violator count + select ----
+
+_MAX_NN = 32  # per-row selection slots the kernel keeps in registers
+_MAX_WARP_D = 128
+_ROWS_PER_BLOCK = 32  # csrc/warp_select.cu kRowsPerBlock
+_SMEM_FLOATS = 48 * 1024 // 4  # the kernel's static shared-memory budget
+# cdae_tpu's _warp_select_kernel constants as unsigned 32-bit values; C1
+# multiplies the column and C2 the row (the reverse of hw_uniform's hash)
+_WARP_C1 = 0x9E3779B9
+_WARP_C2 = 0x85EBCA77
+_WARP_K1 = 0xC2B2AE3D
+_WARP_NOISE = {"mshift": 0, "hash": 1}
+
+
+def _warp_noise_mode(noise) -> str:
+    """cdae_tpu's noise modes: None means "mshift"; "hw" (the TPU's
+    hardware PRNG) cannot be reproduced off the TPU and raises."""
+    noise = "mshift" if noise is None else noise
+    if noise == "hw":
+        raise NotImplementedError(
+            "warp_violator_select noise='hw' draws the TPU's hardware PRNG, "
+            "whose bits no other device reproduces; use 'mshift' (the "
+            "default) or 'hash'")
+    if noise not in _WARP_NOISE:
+        raise ValueError(f"unknown noise mode {noise!r}")
+    return noise
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """The murmur finalizer of cdae_tpu's selection noise on int64 values in
+    [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, _HASH_M1)
+    x = x ^ (x >> 13)
+    x = _mul32(x, _HASH_M2)
+    return x ^ (x >> 16)
+
+
+def _odd32(c: int) -> int:
+    return (c & _MASK32) | 1
+
+
+def warp_noise_plain(seed: int, rows: int, cols: int, nn: int,
+                     noise: str = "mshift", *, device):
+    """The (rows, cols) 24-bit selection noise of each slot k < nn, as
+    int64 tensors: cdae_tpu's per-(row, col, slot) hash, bit for bit.
+    "mshift": two murmur bases of (seed, row, col) shared by all slots,
+    then (base * a_k + base2 * b_k) >> 8; "hash": one murmur mix of
+    (seed, row, col, k) per slot, low 24 bits."""
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
+    h0 = ((int(seed) & _MASK32) + _mul32(c, _WARP_C1)
+          + _mul32(r, _WARP_C2)) & _MASK32
+    if noise == "hash":
+        for k in range(nn):
+            x = _mix32((h0 + ((k * _WARP_K1) & _MASK32)) & _MASK32)
+            yield x & 0xFFFFFF
+        return
+    base = _mix32(h0)
+    base2 = _mul32(base ^ _WARP_C1, _HASH_M2)
+    base2 = base2 ^ (base2 >> 15)
+    base2 = _mul32(base2, _HASH_M1)
+    base2 = base2 ^ (base2 >> 17)
+    for k in range(nn):
+        a_k = _odd32(0x9E3779B1 * (2 * k + 1))
+        b_k = _odd32(0x85EBCA77 * (2 * k + 3))
+        yield ((_mul32(base, a_k) + _mul32(base2, b_k)) & _MASK32) >> 8
+
+
+def warp_violator_select_plain(seed: int, uv_u, iv, ib, thr, mask_rows,
+                               nn: int, noise=None):
+    """Plain version of ``warp_violator_select`` on full (B, I) tensors:
+    library scores, the violation mask, its row counts, and per slot the
+    first column of the largest noise among the violators (argmax of
+    where(viol, noise, -1)); a row with no violator selects 0."""
+    noise = _warp_noise_mode(noise)
+    B, I = uv_u.shape[0], iv.shape[0]
+    scores = torch.addmm(ib, uv_u, iv.t())
+    viol = (scores > thr[:, None]) & (mask_rows == 0)
+    nviol = viol.sum(dim=1, dtype=torch.int32)
+    j = torch.zeros((B, nn), dtype=torch.int32, device=uv_u.device)
+    for k, x in enumerate(warp_noise_plain(seed, B, I, nn, noise,
+                                           device=uv_u.device)):
+        j[:, k] = torch.where(viol, x, -1).argmax(dim=1).to(torch.int32)
+    return nviol, j.clamp_(0, max(I - 1, 0))
+
+
+def warp_violator_select(
+    seed: int,  # the step's int32 selection seed
+    uv_u: torch.Tensor,  # (B, D) f32 user rows
+    iv: torch.Tensor,  # (I, D) f32 item table
+    ib: torch.Tensor,  # (I,) f32 item bias
+    thr: torch.Tensor,  # (B,) f32 violation threshold (yui - margin)
+    mask_rows: torch.Tensor,  # (B, I) int8, nonzero = rated
+    nn: int,
+    noise=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WARP's violator count and ``nn`` uniform violator picks per row,
+    with no (B, I) array in memory. Violators of row b are the unrated
+    columns with uv_u[b] . iv[c] + ib[c] > thr[b]. Returns (nviol (B,)
+    int32, j (B, nn) int32): slot k picks the violator with the largest
+    24-bit noise of (seed, b, c, k), the lowest column on equal noise, so
+    each pick is uniform over the row's violators; a row with none picks 0.
+    The noise is cdae_tpu's ("mshift" by default, or "hash") bit for bit.
+    nn <= 32, D <= 128."""
+    noise = _warp_noise_mode(noise)
+    if not 1 <= nn <= _MAX_NN:
+        raise ValueError(f"nn={nn}: warp_violator_select takes 1 <= nn <= "
+                         f"{_MAX_NN}")
+    if not _on_cuda(uv_u):
+        return warp_violator_select_plain(seed, uv_u, iv, ib, thr, mask_rows,
+                                          nn, noise)
+    from cdae_tpu_torch.ops import cuda_lib
+
+    dev = uv_u.device
+    B, D = uv_u.shape
+    I = iv.shape[0]
+    if not 1 <= D <= _MAX_WARP_D or I == 0:
+        raise ValueError(f"D={D}, I={I}: the kernel takes 1 <= D <= "
+                         f"{_MAX_WARP_D} and I >= 1")
+    _require(uv_u, "uv_u", torch.float32, (B, D), dev)
+    _require(iv, "iv", torch.float32, (I, D), dev)
+    _require(ib, "ib", torch.float32, (I,), dev)
+    _require(thr, "thr", torch.float32, (B,), dev)
+    _require(mask_rows, "mask_rows", torch.int8, (B, I), dev)
+    nviol = torch.empty((B,), dtype=torch.int32, device=dev)
+    j = torch.empty((B, nn), dtype=torch.int32, device=dev)
+    if B == 0:
+        return nviol, j
+    # catalog splits: as many items as the shared-memory budget holds,
+    # fewer when that gives each SM about 8 blocks
+    cap = (_SMEM_FLOATS - _ROWS_PER_BLOCK * D) // (D + 1) // 32 * 32
+    want = _cdiv(8 * _num_sms(dev.index or 0), _cdiv(B, _ROWS_PER_BLOCK))
+    per_split = min(cap, _cdiv(_cdiv(I, want), 32) * 32)
+    splits = _cdiv(I, per_split)
+    part_cnt = torch.empty((B, splits), dtype=torch.int32, device=dev)
+    part_best = torch.empty((B, splits, nn), dtype=torch.int32, device=dev)
+    part_col = torch.empty((B, splits, nn), dtype=torch.int32, device=dev)
+    seed32 = ((int(seed) + 2**31) & _MASK32) - 2**31  # as a C int
+    rc = cuda_lib.lib().cdae_warp_select(
+        seed32, uv_u.data_ptr(), iv.data_ptr(), ib.data_ptr(), thr.data_ptr(),
+        mask_rows.data_ptr(), part_cnt.data_ptr(), part_best.data_ptr(),
+        part_col.data_ptr(), nviol.data_ptr(), j.data_ptr(), B, I, D, nn,
+        splits, per_split, _WARP_NOISE[noise], _stream(dev),
+    )
+    cuda_lib.check(rc, "warp_violator_select")
+    warp_violator_select.launches += 1
+    return nviol, j
+
+
+warp_violator_select.launches = 0

@@ -12,7 +12,7 @@ hands the current rate to models that have ``set_learn_rate``.
 
 Differences from cdae_tpu: the model's state is updated in place; the
 random draws of an iteration derive from the solver ``seed`` and
-``state.step`` (models/cdae.py ``step_seed``), so a checkpoint needs no
+``state.step`` (utils/random.py ``step_seed``), so a checkpoint needs no
 stored random stream to resume exactly.
 """
 

@@ -26,8 +26,19 @@ Phases, each printed as one JSON line:
                Solver.train: R@10 within 0.02 of the unfused run
   train_speed -- warm training users/s, unfused and fused: ML-1M (D=50)
              and config-4 (50,000 x 20,000, D=200, 1 GB dense_R)
-Then the kernel table (each kernel's launches from the path that owns it),
-the card's name and power limit, and, last, the ok line. Any failed phase
+  kernel_warp -- the WARP violator kernel (B7) against its plain version at
+             (B, I, D, nn) = (8192, 3706, 10, 5) and (8192, 20000, 10, 5),
+             and the chi-square of its picks
+  WARP training path (counts from 0 before, read after; B7 and B2):
+    train_warp -- ML-1M-scale low-rank data, D=10, batch 8192, 10 epochs
+             through the CLI --task train --method WARP; R@10 must rise
+  train_warp_xla -- the same 10 epochs with use_pallas=False (the cumsum
+             route): R@10 within 0.03 of the kernel run
+  train_speed_warp -- warm WARP training users/s, both routes
+Then the kernel table (each kernel's launches from the path that owns it;
+bound_ms is the least time for the kernel's work at the card's published
+peaks: HBM bytes at 3.35 TB/s against 32-bit operations at 67 T/s), the
+card's name and power limit, and, last, the ok line. Any failed phase
 makes the exit code 1 and leaves out the ok line. Without a CUDA GPU, or
 without the repository beside it, the script exits 2 and prints no result.
 
@@ -53,26 +64,41 @@ TOL = 1e-4  # f32 sums in another order than the library GEMM
 # sums of squared gradients that reach ~1e5 in one step
 FUSED_RTOL, FUSED_ATOL = 3e-4, 1e-5
 FUSED_OUTPUTS = ("W", "W_ag", "b_prime", "bp_ag", "hg")
+WARP_R10_GATE = 0.03  # the kernel and cumsum routes' R@10 (BASELINE.md)
+WARP_CHI2_BOUND = 330.0  # tests/test_pallas.py's pooled bound, dof 255
+# the published peaks of an H100 SXM at 700 W: HBM bytes, and 32-bit
+# operations outside the tensor cores (67 TFLOP/s f32, an FMA counted as
+# two; integer operations are counted against the same rate, which makes
+# the bound lower than Hopper's 64 INT32 lanes per SM allow)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 
-# name -> (module of the wrapper, source, TPU kernel it replaces, path)
+# name -> (module of the wrapper, source, TPU kernel it replaces, paths
+# that must launch it; the first owns the table's launch count)
 KERNELS = {
     "decode_scores": ("pallas_kernels", "cdae_tpu_torch/csrc/decode_scores.cu",
-                      "cdae_tpu/ops/pallas_kernels.py:53", "serving"),
+                      "cdae_tpu/ops/pallas_kernels.py:53", ("serving",)),
     "fused_topk_scores": ("pallas_kernels",
                           "cdae_tpu_torch/csrc/fused_topk.cu",
-                          "cdae_tpu/ops/pallas_kernels.py:557", "serving"),
+                          "cdae_tpu/ops/pallas_kernels.py:557",
+                          ("serving",)),
     "fused_topk_scores_csr": ("pallas_kernels",
                               "cdae_tpu_torch/csrc/fused_topk.cu",
                               "cdae_tpu/ops/pallas_kernels.py:641",
-                              "serving"),
+                              ("serving",)),
     "hw_uniform": ("pallas_kernels", "cdae_tpu_torch/csrc/hw_uniform.cu",
-                   "cdae_tpu/ops/pallas_kernels.py:178", "training"),
+                   "cdae_tpu/ops/pallas_kernels.py:178", ("training",)),
     "adagrad_update": ("pallas_kernels",
                        "cdae_tpu_torch/csrc/adagrad_update.cu",
-                       "cdae_tpu/ops/pallas_kernels.py:108", "training"),
+                       "cdae_tpu/ops/pallas_kernels.py:108",
+                       ("training", "warp_training")),
     "cdae_dense_step_fused": ("cdae_fused", "cdae_tpu_torch/csrc/cdae_fused.cu",
                               "cdae_tpu/ops/cdae_fused.py:249",
-                              "fused_training"),
+                              ("fused_training",)),
+    "warp_violator_select": ("pallas_kernels",
+                             "cdae_tpu_torch/csrc/warp_select.cu",
+                             "cdae_tpu/ops/pallas_kernels.py:1028",
+                             ("warp_training",)),
 }
 
 
@@ -86,18 +112,19 @@ def wrapper(name):
 
 def reset_counts(path: str) -> None:
     for name, spec in KERNELS.items():
-        if spec[3] == path:
+        if path in spec[3]:
             wrapper(name).launches = 0
 
 
 def read_counts(path: str, launches: dict, failed: list) -> None:
-    """Record the launch counts of ``path``'s kernels; a kernel of the path
-    that never launched fails the run."""
+    """Record the launch counts of ``path``'s kernels in
+    ``launches[name][path]``; a kernel of the path that never launched
+    fails the run."""
     for name, spec in KERNELS.items():
-        if spec[3] != path:
+        if path not in spec[3]:
             continue
-        launches[name] = wrapper(name).launches
-        if launches[name] == 0:
+        n = launches.setdefault(name, {})[path] = wrapper(name).launches
+        if n == 0:
             emit(dict(phase="launches", path=path, kernel=name, ok=False,
                       error="the main path never launched this kernel"))
             failed.append(f"launches:{name}")
@@ -105,6 +132,16 @@ def read_counts(path: str, launches: dict, failed: list) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take for work that must move
+    ``nbytes`` through HBM and do ``ops`` 32-bit operations: the larger of
+    the two times at the published peaks."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -159,7 +196,9 @@ def phase_kernels(torch, P, results):
         row = dict(phase="kernel", kernel="decode_scores", B=B, I=I, D=D,
                    max_abs_err=err, tol=TOL,
                    ms=median_ms(lambda: P.decode_scores(z, W, bp)),
-                   plain_ms=median_ms(lambda: P.decode_scores_plain(z, W, bp)))
+                   plain_ms=median_ms(lambda: P.decode_scores_plain(z, W, bp)),
+                   library_ms=median_ms(lambda: torch.addmm(bp, z, W.t())),
+                   **bound(4.0 * (B * D + I * D + I + B * I), 2.0 * B * I * D))
         emit(row)
         if err > TOL:
             raise AssertionError(f"decode_scores error {err} > {TOL}")
@@ -174,7 +213,9 @@ def phase_kernels(torch, P, results):
     rows = (torch.rand(B, I, generator=g, device=dev) < 0.01).to(torch.int8)
     _check_topk(torch, results, "fused_topk_scores", B, I, D, k,
                 lambda kk: P.fused_topk_scores(z, W, bp, rows, k=kk),
-                lambda kk: P.fused_topk_scores_plain(z, W, bp, rows, k=kk))
+                lambda kk: P.fused_topk_scores_plain(z, W, bp, rows, k=kk),
+                bound(4.0 * (B * D + I * D + I) + B * I + 8.0 * B * k,
+                      2.0 * B * I * D))
     del rows
 
     # B6 fused_topk_scores_csr: sorted rated rows of 1 to 2048 items
@@ -188,10 +229,13 @@ def phase_kernels(torch, P, results):
     _check_topk(torch, results, "fused_topk_scores_csr", B, I, D, k,
                 lambda kk: P.fused_topk_scores_csr(z, W, bp, rated, k=kk),
                 lambda kk: P.fused_topk_scores_csr_plain(z, W, bp, rated,
-                                                         k=kk))
+                                                         k=kk),
+                bound(4.0 * (B * D + I * D + I + B * 2048) + 8.0 * B * k,
+                      2.0 * B * I * D))
 
 
-def _check_topk(torch, results, name, B, I, D, k, kernel, plain):
+def _check_topk(torch, results, name, B, I, D, k, kernel, plain, work):
+    """Decode + top-k has no single library call (library_ms null)."""
     ids, vals = kernel(k)
     plain_ids, plain_vals = plain(k + 1)
     torch.cuda.synchronize()
@@ -200,7 +244,8 @@ def _check_topk(torch, results, name, B, I, D, k, kernel, plain):
                max_abs_err=err, tol=TOL, rows_checked=checked,
                rows_with_other_ids=other,
                ms=median_ms(lambda: kernel(k), reps=3),
-               plain_ms=median_ms(lambda: plain(k), reps=3))
+               plain_ms=median_ms(lambda: plain(k), reps=3),
+               library_ms=None, **work)
     emit(row)
     if err > TOL or other:
         raise AssertionError(f"{name}: max_abs_err {err}, {other} rows with "
@@ -231,7 +276,12 @@ def phase_train_kernels(torch, results):
                    ms=median_ms(lambda: P.hw_uniform(SEED, shape, 1,
                                                      device=dev)),
                    plain_ms=median_ms(lambda: P.hw_uniform_plain(
-                       SEED, shape, 1, device=dev)))
+                       SEED, shape, 1, device=dev)),
+                   # no library call draws this hash stream (torch.rand is
+                   # another function); ~12 integer operations an element
+                   library_ms=None,
+                   **bound(4.0 * shape[0] * shape[1],
+                           12.0 * shape[0] * shape[1]))
         emit(row)
         results.setdefault("hw_uniform", row)
         if not equal:
@@ -249,6 +299,13 @@ def phase_train_kernels(torch, results):
         rel = max(((pk - pp).abs() / pp.abs().clamp_min(1e-30)).max().item(),
                   ((ak - ap).abs() / ap.abs()).max().item())
         pw, aw = p.clone(), a.clone()
+        n = p.numel()
+        # the library's AdaGrad: sum += g^2; p -= lr*g/(sqrt(sum) + eps),
+        # with eps = beta it is this update
+        pl = p.clone().requires_grad_(True)
+        pl.grad = gr
+        opt = torch.optim.Adagrad([pl], lr=0.1, eps=1.0)
+        opt.state[pl]["sum"] = a.clone()
         row = dict(phase="kernel", kernel="adagrad_update", shape=list(shape),
                    max_rel_err=rel, tol=1e-6,
                    max_abs_err=max((pk - pp).abs().max().item(),
@@ -256,7 +313,9 @@ def phase_train_kernels(torch, results):
                    ms=median_ms(lambda: P.adagrad_update(pw, aw, gr, 0.1,
                                                          1.0)),
                    plain_ms=median_ms(lambda: P.adagrad_update_plain(
-                       pw, aw, gr, 0.1, 1.0)))
+                       pw, aw, gr, 0.1, 1.0)),
+                   library_ms=median_ms(opt.step),
+                   **bound(20.0 * n, 7.0 * n))
         emit(row)
         results.setdefault("adagrad_update", row)
         if rel > 1e-6:
@@ -309,7 +368,16 @@ def phase_train_kernels(torch, results):
                    ms=median_ms(lambda: F.cdae_dense_step_fused(
                        SEED, rows, w_user, p_neg, h_bias, *args, **kw)),
                    plain_ms=median_ms(lambda: F.cdae_dense_step_fused_plain(
-                       SEED, rows, w_user, p_neg, h_bias, *args, **kw)))
+                       SEED, rows, w_user, p_neg, h_bias, *args, **kw)),
+                   # no library call does a whole CDAE step; the work is
+                   # five dense (B, I, D) products (encode, decode, the
+                   # hidden gradient, d_W's two) and two hash draws. The
+                   # kernel's grads launch recomputes the decode, a sixth
+                   # product that the step does not need: not counted
+                   library_ms=None,
+                   **bound(B * I + 4.0 * (2 * B + 2 * B * D)
+                           + 16.0 * (I * D + I),
+                           10.0 * B * I * D + 24.0 * B * I))
         emit(row)
         results.setdefault("cdae_dense_step_fused", row)
         if not ok:
@@ -467,6 +535,7 @@ def phase_train_ml1m(torch, tmp, held):
     hist = solver.history
     finite = _params_finite(solver.state.params)
     held["ml1m"] = (solver, data.split_by_user(0.2, seed=SEED))
+    held["ml1m_data"] = data
     return dict(phase="train_ml1m", users=6040, items=3706, D=50,
                 interactions=len(data), epochs=10, data_s=data_s,
                 cli_seconds=cli_s,
@@ -578,6 +647,242 @@ def phase_train_speed(torch, held):
     return out
 
 
+# ----------------------------------------------------------------- WARP ----
+
+def _warp_problem(torch, g, B, I, D):
+    """B7's inputs at the WARP step's shapes: ~4% rated int8 rows, and
+    thr = one rated item's score - 1, as the step passes it. The values
+    are dyadic (multiples of 1/64, small), so every score is exact in f32
+    whatever the order of the sums: the kernel and the library GEMM of the
+    plain version then agree on every comparison with thr."""
+    dev = torch.device("cuda")
+
+    def dyadic(*shape):
+        return torch.round(torch.randn(*shape, generator=g, device=dev)
+                           * 32) / 64
+
+    uv, iv, ib = dyadic(B, D), dyadic(I, D), dyadic(I)
+    mask = (torch.rand(B, I, generator=g, device=dev) < 0.04).to(torch.int8)
+    pos = torch.randint(0, I, (B,), generator=g, device=dev)
+    mask[torch.arange(B, device=dev), pos] = 1
+    thr = (uv * iv[pos]).sum(1) + ib[pos] - 1.0
+    return uv, iv, ib, thr, mask
+
+
+def phase_kernel_warp(torch, results):
+    """B7 against its plain version at the WARP path's shapes: nviol and j
+    equal on every row (the dyadic inputs make every score exact in both,
+    so no row is excused); then the chi-square of the card's picks (every
+    item a violator, 8 seeds pooled, tests/test_pallas.py's bound)."""
+    import cdae_tpu_torch.ops.pallas_kernels as P
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    nn = 5
+    bad = []
+    for B, I, D in ((8192, 3706, 10), (8192, 20000, 10)):
+        args = (*_warp_problem(torch, g, B, I, D), nn)
+        nviol, j = P.warp_violator_select(SEED, *args)
+        p_nviol, p_j = P.warp_violator_select_plain(SEED, *args)
+        # cdae_tpu's other reproducible noise, "hash", on the same rows
+        h_equal = all(map(torch.equal,
+                          P.warp_violator_select(SEED, *args, noise="hash"),
+                          P.warp_violator_select_plain(SEED, *args,
+                                                       noise="hash")))
+        torch.cuda.synchronize()
+        nviol_equal = bool(torch.equal(nviol, p_nviol))
+        j_rows_differ = int((j != p_j).any(dim=1).sum())
+        viol_total = int(p_nviol.sum())
+        err = max((nviol - p_nviol).abs().max().item(),
+                  (j - p_j).abs().max().item())
+        row = dict(phase="kernel_warp", kernel="warp_violator_select", B=B,
+                   I=I, D=D, nn=nn, nviol_equal=nviol_equal,
+                   hash_noise_equal=h_equal, rows_checked=B,
+                   j_rows_differ=j_rows_differ,
+                   mean_nviol=viol_total / B, max_abs_err=err,
+                   ms=median_ms(lambda: P.warp_violator_select(SEED, *args)),
+                   plain_ms=median_ms(
+                       lambda: P.warp_violator_select_plain(SEED, *args),
+                       reps=3),
+                   # no library call counts and picks violators
+                   library_ms=None,
+                   # the int8 rows once, the tables, the outputs; f32 FMAs
+                   # for the scores, ~3 integer operations a cell and, where
+                   # a cell violates, 16 for the noise bases + 6 a slot
+                   **bound(B * I + 4.0 * (B * D + I * D + I + B)
+                           + 4.0 * (B + B * nn),
+                           2.0 * B * I * D + 3.0 * B * I
+                           + viol_total * (16.0 + 6.0 * nn)))
+        emit(row)
+        results.setdefault("warp_violator_select", row)
+        if not nviol_equal or j_rows_differ or not h_equal:
+            bad.append(f"warp_violator_select {(B, I, D, nn)}")
+        del args
+
+    B, I, D, nn = 64, 256, 4, 4
+    counts = torch.zeros(I, dtype=torch.float64, device=dev)
+    for s in range(8):
+        _, j = P.warp_violator_select(
+            1000 + s * 7919, torch.ones((B, D), device=dev),
+            torch.ones((I, D), device=dev), torch.zeros(I, device=dev),
+            torch.full((B,), -1e9, device=dev),
+            torch.zeros((B, I), dtype=torch.int8, device=dev), nn)
+        counts += torch.bincount(j.reshape(-1).long(), minlength=I)
+    E = counts.sum() / I
+    chi2 = float(((counts - E) ** 2 / E).sum())
+    emit(dict(phase="kernel_warp_uniformity", B=B, I=I, nn=nn, seeds=8,
+              chi2=chi2, dof=I - 1, bound=WARP_CHI2_BOUND,
+              ok=chi2 <= WARP_CHI2_BOUND))
+    if chi2 > WARP_CHI2_BOUND:
+        bad.append(f"warp_violator_select chi2 {chi2}")
+    if bad:
+        raise AssertionError(f"B7 disagrees with its plain version or is "
+                             f"not uniform: {bad}")
+
+
+WARP_TRAIN = ["--task", "train", "--method", "WARP", "--num_dim", "10",
+              "--num_neg", "5", "--loss_type", "HINGE", "--beta", "0",
+              "--lambda", "0.1", "--learn_rate", "0.1", "--batch_size",
+              "8192", "--max_iters", "10", "--eval_iters", "5",
+              "--skip_popularity", "--seed", str(SEED), "--test_ratio",
+              "0.2"]
+
+
+def phase_train_warp(torch, tmp, held):
+    """CLI --task train --method WARP on the ML-1M-scale low-rank data
+    (the repo's WARP configuration: D=10, batch 8192, num_neg 5, num_tries
+    64, HINGE, beta 0, lambda 0.1), 10 epochs, TOPN at 0, 5 and 10."""
+    from cdae_tpu_torch import cli
+    from cdae_tpu_torch.data import io as data_io
+    from cdae_tpu_torch.solver.solver import _params_finite
+
+    data = held["ml1m_data"]
+    cache = os.path.join(tmp, "ml1m_lowrank.bin")
+    data_io.save_interactions(data, cache)
+    t0 = time.perf_counter()
+    solver = cli.train(cli.build_arg_parser().parse_args(
+        WARP_TRAIN + ["--cache_file", cache]))
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    hist = solver.history
+    finite = _params_finite(solver.state.params)
+    held["warp"] = solver
+    n = len(held["ml1m"][1][0])
+    return dict(phase="train_warp", users=6040, items=3706, D=10,
+                batch=8192, train_instances=n, steps_per_epoch=-(-n // 8192),
+                epochs=10, cli_seconds=cli_s,
+                use_pallas=solver.model.cfg.use_pallas,
+                recall_at_10={int(r["iter"]): r["R@10"] for r in hist},
+                map_at_10={int(r["iter"]): r["MAP@10"] for r in hist},
+                train_loss={int(r["iter"]): r["train_loss"] for r in hist},
+                params_finite=finite,
+                ok=finite and hist[-1]["R@10"] > hist[0]["R@10"])
+
+
+def phase_train_warp_xla(torch, held):
+    """The same 10 epochs with use_pallas=False (count from the full score
+    rows, picks by cumsum + searchsorted, op-by-op AdaGrad) through
+    Solver.train: the same sampling distribution from other random
+    streams, so R@10 within 0.03 of the kernel run."""
+    import dataclasses
+
+    from cdae_tpu_torch.models.mf import WARP
+    from cdae_tpu_torch.solver.solver import Solver, _params_finite
+
+    solver = held["warp"]
+    train, test = held["ml1m"][1]
+    model = WARP(dataclasses.replace(solver.model.cfg, use_pallas=False),
+                 device="cuda")
+    xla = Solver(model, max_iteration=10, eval_iterations=10, seed=SEED,
+                 verbose=False)
+    t0 = time.perf_counter()
+    xla.train(train, test, ["TOPN"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    r_x, r_k = xla.history[-1]["R@10"], solver.history[-1]["R@10"]
+    finite = _params_finite(xla.state.params)
+    return dict(phase="train_warp_xla", epochs=10, seconds=wall,
+                recall_at_10_xla=r_x, recall_at_10_kernel=r_k,
+                recall_at_0=xla.history[0]["R@10"], diff=abs(r_x - r_k),
+                tol=WARP_R10_GATE, params_finite=finite,
+                ok=finite and abs(r_x - r_k) <= WARP_R10_GATE
+                and r_x > xla.history[0]["R@10"])
+
+
+def _profile(torch, fn) -> dict:
+    """One call of ``fn`` under torch.profiler: host wall, device busy time
+    (the sum of the CUDA kernels' spans on the one stream), idle share and
+    the largest kernels. Without device events the device numbers are
+    None (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, kernels = {}, 0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            kernels += 1
+            by_name[evt.name] = (by_name.get(evt.name, 0.0)
+                                 + evt.time_range.elapsed_us() / 1e3)
+    busy = sum(by_name.values()) if by_name else None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=None if busy is None else 1.0 - busy / wall_ms,
+                device_kernels=kernels,
+                top_kernels_ms=[[n[:80], ms] for n, ms in top])
+
+
+def phase_train_speed_warp(torch, held):
+    """Warm WARP training throughput, kernel and cumsum routes: one
+    warm-up epoch, then 2 timed epochs (host clock between synchronizes);
+    users/s = users * epochs / wall; then one more epoch under
+    torch.profiler for the device busy time and idle share."""
+    import dataclasses
+
+    from cdae_tpu_torch.models.mf import WARP
+    from cdae_tpu_torch.solver.solver import _params_finite
+
+    cfg = held["warp"].model.cfg
+    train = held["ml1m"][1][0]
+    n = len(train)
+    steps = -(-n // cfg.batch_size)
+    out = dict(phase="train_speed_warp", users=train.num_users,
+               items=train.num_items, instances=n, batch=cfg.batch_size,
+               steps_per_epoch=steps)
+    ok = True
+    for use_pallas in (True, False):
+        model = WARP(dataclasses.replace(cfg, use_pallas=use_pallas),
+                     device="cuda")
+        state = model.reset(train, seed=SEED)
+        model.train_one_iteration(state, SEED)  # warm-up, builds the mask
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            model.train_one_iteration(state, SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = _profile(torch, lambda: model.train_one_iteration(state, SEED))
+        prof["launches_per_step"] = prof.pop("device_kernels") / steps
+        finite = _params_finite(state.params)
+        out["kernel" if use_pallas else "xla"] = dict(
+            seconds_2_epochs=wall, users_per_s=train.num_users * 2 / wall,
+            instances_per_s=n * 2 / wall,
+            ms_per_step=wall * 1e3 / (2 * steps),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            params_finite=finite, profiled_epoch=prof)
+        ok = ok and finite
+        del state
+    out["ok"] = ok
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -656,13 +961,31 @@ def main() -> int:
     else:
         failed.append("training phases (no ML-1M run to build on)")
 
+    run("kernel_warp", lambda: phase_kernel_warp(torch, results))
+    if "ml1m_data" in held:
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts("warp_training")
+            run("train_warp", lambda: phase_train_warp(torch, tmp, held))
+            read_counts("warp_training", launches, failed)
+    if "warp" in held:
+        run("train_warp_xla", lambda: phase_train_warp_xla(torch, held))
+        run("train_speed_warp", lambda: phase_train_speed_warp(torch, held))
+    else:
+        failed.append("WARP training phases (no WARP run to build on)")
+
     table = []
-    for name, (_, source, replaces, _) in KERNELS.items():
+    for name, (_, source, replaces, paths) in KERNELS.items():
         r = results.get(name, {})
+        by_path = launches.get(name, {})
         table.append(dict(name=name, route="cuda", source=source,
-                          replaces=replaces, launches=launches.get(name, 0),
+                          replaces=replaces,
+                          launches=by_path.get(paths[0], 0),
+                          launches_by_path=by_path,
                           max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
-                          plain_ms=r.get("plain_ms")))
+                          plain_ms=r.get("plain_ms"),
+                          bound_ms=r.get("bound_ms"),
+                          bound_by=r.get("bound_by"),
+                          library_ms=r.get("library_ms")))
     emit({"kernels": table})
     try:
         smi = subprocess.run(
@@ -677,7 +1000,6 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
-    # the script drives one card, whatever the host has
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": 1}})

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels of cdae_tpu_torch against their plain
 PyTorch versions, on a GPU, at ragged shapes: the serving kernels (decode,
-fused top-k) and the training kernels (hw_uniform and adagrad_update bit
-for bit, the fused step within f32 summation-order tolerance). Every test
+fused top-k), the training kernels (hw_uniform and adagrad_update bit
+for bit, the fused step within f32 summation-order tolerance) and the WARP
+violator kernel (counts and picks exact on dyadic inputs). Every test
 is marked ``cuda`` and skips when torch.cuda.is_available() is False (the
 kernels have no CPU mode).
 
@@ -221,3 +222,87 @@ def test_training_kernels_reject_bad_inputs(cuda, rng_np):
                                 **kw)
     with pytest.raises(ValueError):
         F.cdae_dense_step_fused(1, *ins, **{**kw, "act": "relu"})
+
+
+# ------------------------------------------------- WARP violator kernel ----
+
+def _warp_inputs(rng, B, I, D, rated=0.04):
+    """Dyadic inputs (multiples of 1/64, small): every score is exact in
+    f32 whatever the order of the sums, so the kernel and the library
+    GEMM of the plain version agree on every comparison with thr. thr is
+    one rated item's score minus 1, as WARP's step passes it."""
+    uv = np.round(rng.standard_normal((B, D)) * 32) / 64
+    iv = np.round(rng.standard_normal((I, D)) * 32) / 64
+    ib = np.round(rng.standard_normal(I) * 32) / 64
+    mask = (rng.random((B, I)) < rated).astype(np.int8)
+    pos = rng.integers(0, I, B)
+    mask[np.arange(B), pos] = 1
+    thr = (uv * iv[pos]).sum(1) + ib[pos] - 1.0
+    f32 = np.float32
+    return uv.astype(f32), iv.astype(f32), ib.astype(f32), thr.astype(f32), \
+        mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,I,D,nn,noise", [
+    (21, 333, 7, 4, "mshift"),
+    (1, 5, 3, 1, "hash"),
+    (130, 3706, 10, 5, "mshift"),
+    (33, 999, 50, 9, "hash"),
+    (70, 2000, 128, 32, "mshift"),
+])
+def test_warp_violator_select_kernel_is_exact(cuda, rng_np, B, I, D, nn,
+                                              noise):
+    ins = _on(cuda, *_warp_inputs(rng_np, B, I, D))
+    for seed in (42, -7):
+        want = P.warp_violator_select_plain(seed, *ins, nn, noise=noise)
+        before = P.warp_violator_select.launches
+        got = P.warp_violator_select(seed, *ins, nn, noise=noise)
+        torch.cuda.synchronize()
+        assert P.warp_violator_select.launches == before + 1
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_warp_violator_select_kernel_rows_without_violators(cuda, rng_np):
+    uv, iv, ib, thr, mask = _on(cuda, *_warp_inputs(rng_np, 40, 300, 10))
+    thr[:10] = float("inf")  # no violator: count 0, every pick 0
+    mask[10:20] = 1  # everything rated
+    nviol, j = P.warp_violator_select(3, uv, iv, ib, thr, mask, 5)
+    want = P.warp_violator_select_plain(3, uv, iv, ib, thr, mask, 5)
+    assert torch.equal(nviol, want[0]) and torch.equal(j, want[1])
+    assert not nviol[:20].any() and not j[:20].any()
+
+
+@pytest.mark.cuda
+def test_warp_violator_select_kernel_uniformity(cuda):
+    """tests/test_pallas.py's chi-square of the mshift picks (every item a
+    violator), on the kernel: pooled over 8 seeds, bound 330 at dof 255."""
+    B, I, D, nn = 64, 256, 4, 4
+    ones = torch.ones
+    counts = torch.zeros(I, dtype=torch.float64, device=cuda)
+    for s in range(8):
+        _, j = P.warp_violator_select(
+            1000 + s * 7919, ones((B, D), device=cuda),
+            ones((I, D), device=cuda), torch.zeros(I, device=cuda),
+            torch.full((B,), -1e9, device=cuda),
+            torch.zeros((B, I), dtype=torch.int8, device=cuda), nn)
+        counts += torch.bincount(j.reshape(-1).long(), minlength=I)
+    E = counts.sum() / I
+    assert float(((counts - E) ** 2 / E).sum()) < 330.0
+
+
+@pytest.mark.cuda
+def test_warp_violator_select_rejects_bad_inputs(cuda, rng_np):
+    uv, iv, ib, thr, mask = _on(cuda, *_warp_inputs(rng_np, 4, 50, 6))
+    with pytest.raises(ValueError):
+        P.warp_violator_select(1, uv, iv, ib, thr, mask, 33)
+    with pytest.raises(NotImplementedError):
+        P.warp_violator_select(1, uv, iv, ib, thr, mask, 5, noise="hw")
+    with pytest.raises(TypeError):
+        P.warp_violator_select(1, uv, iv, ib, thr, mask.float(), 5)
+    with pytest.raises(ValueError):
+        wide = torch.zeros((50, 129), device=cuda)
+        P.warp_violator_select(1, torch.zeros((4, 129), device=cuda), wide,
+                               ib, thr, mask, 5)
