@@ -1,4 +1,5 @@
-"""CLI of the port (port of cdae_tpu/cli.py, the CDAE and WARP tasks).
+"""CLI of the port (port of cdae_tpu/cli.py, the CDAE, WARP and FISM
+tasks).
 
 The flag surface is cdae_tpu's, so command lines carry over, plus
 ``--device`` (default ``cuda``; ``--device cpu`` is the only way onto the
@@ -7,17 +8,18 @@ CPU -- a CUDA request without a GPU raises). Tasks:
   prepare  -- parse the text input, build vocabs, write the cache
   split    -- per-user split of the cache, write train/test caches
   train    -- load --cache_file, split it (--test_ratio, --seed), train
-              --method CDAE or WARP with Solver.train, evaluating every
+              --method CDAE, WARP, FISM or FISMPAIR with Solver.train
+              (SGDSolver with --learn_rate for FISM), evaluating every
               --eval_iters; --init_checkpoint resumes, --checkpoint /
               --checkpoint_every write checkpoints. cdae_tpu trains the
               Popularity baseline first, which is not ported yet (ROADMAP
               A9): pass --skip_popularity.
   test     -- load split caches, restore --init_checkpoint (a cdae_tpu or
-              cdae_tpu_torch checkpoint), evaluate --method CDAE or WARP
+              cdae_tpu_torch checkpoint), evaluate any of those methods
 
-``sweep``, and every method but CDAE and WARP (the other MF models, ALS,
-FISM, the linear and neighbour models, Popularity), come with later slices
-of the port and exit with a message saying so.
+``sweep``, and every other method (the other MF models, ALS, the linear
+and neighbour models, Popularity), come with later slices of the port and
+exit with a message saying so.
 
 Run: ``python -m cdae_tpu_torch.cli --task train --method WARP
 --skip_popularity ...``
@@ -57,7 +59,7 @@ def _booly(v: str) -> bool:
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cdae_tpu_torch",
-        description="CDAE and WARP training and top-N serving on "
+        description="CDAE, WARP and FISM training and top-N serving on "
                     "PyTorch/CUDA (cdae_tpu port)",
     )
     # -- cdae_tpu's flag surface --
@@ -137,7 +139,7 @@ def build_model(args):
     """--method dispatch over the port's ``MODEL_REGISTRY``; the config
     comes from the flags by the model's config class, as in cdae_tpu."""
     from cdae_tpu_torch.models import (LATER_MODELS, MODEL_REGISTRY,
-                                       CDAEConfig, MFConfig)
+                                       CDAEConfig, FISMConfig, MFConfig)
 
     method = args.method.upper()
     if method not in MODEL_REGISTRY:
@@ -160,6 +162,14 @@ def build_model(args):
             num_shared_neg=args.num_shared_neg,
             epoch_chunk=(args.epoch_chunk or None),
             fast_rng=(True if args.fast_rng else None),
+        ), device=args.device)
+    if cfg_cls is FISMConfig:
+        # cdae_tpu passes FISM no --dense_mode and an eighth of the batch
+        return cls(FISMConfig(
+            lambda_=args.lambda_, loss=args.loss_type, num_dim=args.num_dim,
+            num_neg=args.num_neg, alpha=args.alpha,
+            using_adagrad=args.adagrad, learn_rate=args.learn_rate,
+            batch_size=max(args.batch_size // 8, 1),
         ), device=args.device)
     return cls(CDAEConfig(
         lambda_=args.lambda_, learn_rate=args.learn_rate,
@@ -188,10 +198,11 @@ def _eval_types(args) -> list:
 
 
 def train(args):
-    """The train task: split ``--cache_file``, train with Solver.train,
-    return the Solver (its ``history`` holds every eval row, iteration 0
-    included)."""
-    from cdae_tpu_torch.solver.solver import Solver
+    """The train task: split ``--cache_file``, train with Solver.train
+    (SGDSolver from --learn_rate for FISM, as cdae_tpu), return the Solver
+    (its ``history`` holds every eval row, iteration 0 included)."""
+    from cdae_tpu_torch.models import FISM
+    from cdae_tpu_torch.solver.solver import SGDSolver, Solver
 
     if not args.skip_popularity:
         raise SystemExit(
@@ -203,10 +214,14 @@ def train(args):
     logger.info("loaded %s", data)
     train_data, test = data.split_by_user(args.test_ratio, seed=args.seed)
     logger.info("train %s / test %s", train_data, test)
-    solver = Solver(model, max_iteration=args.max_iters,
-                    eval_iterations=args.eval_iters, seed=args.seed,
-                    trace_dir=args.trace_dir or None, guard=args.guard_nan,
-                    loss_sample_size=args.loss_sample)
+    solver_cls = SGDSolver if isinstance(model, FISM) else Solver
+    solver = solver_cls(model, max_iteration=args.max_iters,
+                        eval_iterations=args.eval_iters, seed=args.seed,
+                        trace_dir=args.trace_dir or None,
+                        guard=args.guard_nan,
+                        loss_sample_size=args.loss_sample)
+    if isinstance(solver, SGDSolver):
+        solver.learn_rate0 = args.learn_rate
     solver.train(
         train_data, test, _eval_types(args),
         resume_from=args.init_checkpoint or None,

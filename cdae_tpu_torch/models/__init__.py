@@ -1,5 +1,6 @@
-"""Models of the port: CDAE (dense training and serving) and WARP (dense
-path training and serving), with cdae_tpu's registry.
+"""Models of the port: CDAE (dense training and serving), WARP (dense path
+training and serving) and FISM / FISMPair (training and serving), with
+cdae_tpu's registry.
 
 ``create_model(name, **cfg)`` mirrors cdae_tpu's (the reference app's
 ``--method`` dispatch). Every other model of cdae_tpu's zoo raises
@@ -8,19 +9,21 @@ NotImplementedError naming the ROADMAP entry of the slice it comes with.
 
 from cdae_tpu_torch.models.base import ModelState, RecsysModel
 from cdae_tpu_torch.models.cdae import CDAE, CDAEConfig
+from cdae_tpu_torch.models.fism import FISM, FISMConfig, FISMPair
 from cdae_tpu_torch.models.mf import WARP, MFConfig
 
 MODEL_REGISTRY = {
     "CDAE": (CDAE, CDAEConfig),
     "WARP": (WARP, MFConfig),
+    "FISM": (FISM, FISMConfig),
+    "FISMPAIR": (FISMPair, FISMConfig),
 }
 
 # cdae_tpu's other registry names -> the ROADMAP entry that ports them
 LATER_MODELS = {
     "PMF": "A8", "IMF": "A8", "BPR": "A8",
-    "ALS": "A9", "WRMF": "A9", "FISM": "A9", "FISMPAIR": "A9",
-    "NEGMF": "A9", "LINEAR": "A9", "FM": "A9", "POP": "A9", "ITEMCF": "A9",
-    "USERCF": "A9",
+    "ALS": "A9", "WRMF": "A9", "NEGMF": "A9", "LINEAR": "A9", "FM": "A9",
+    "POP": "A9", "ITEMCF": "A9", "USERCF": "A9",
 }
 
 
@@ -40,4 +43,5 @@ def create_model(name: str, device="cuda", **cfg):
 
 
 __all__ = ["RecsysModel", "ModelState", "MODEL_REGISTRY", "LATER_MODELS",
-           "create_model", "CDAE", "CDAEConfig", "WARP", "MFConfig"]
+           "create_model", "CDAE", "CDAEConfig", "WARP", "MFConfig", "FISM",
+           "FISMPair", "FISMConfig"]

@@ -18,7 +18,12 @@ uniform over the violators. With ``use_pallas`` on (the default on a CUDA
 device) the violator count and the picks come from the hand-written kernel
 ``warp_violator_select`` (kernel B7); with it off, from the full (B, I)
 scores, a cumulative count and one ``searchsorted`` per pick. The AdaGrad
-sweeps of uv and iv go through ``adagrad_update`` (kernel B2).
+sweeps of uv and iv go through ``adagrad_update`` (kernel B2). With
+``gather_mode="mxu"`` the step's row gathers are kernel B9
+(``gather_rows_mxu``: one call for the B*(1+nn) item rows with the bias
+column, one for the B user rows), and with ``scatter_mode="pallas"`` or
+``"pallas_bf16"`` its row sums are kernel B8 (``scatter_add_rows``), whose
+fixed summation order makes the step reproducible bit for bit on the card.
 
 Random draws. cdae_tpu's threefry and TPU hardware streams cannot be
 reproduced in torch. Each epoch's permutation comes from a generator seeded
@@ -34,8 +39,7 @@ Python loop of steps (``epoch_chunk``, which bounds a TPU program's length,
 is accepted and does nothing); no padded (U, L) item matrix is kept, only
 the row lengths WARP needs. Not ported yet, and raising: the slab step
 (``dense_mode=True``), the pool path (``warp_pool``) and the scan path (no
-rated mask) of WARP; PMF, IMF and BPR (ROADMAP A8); ``gather_mode="mxu"``
-(kernel B9) and the ``pallas`` scatter modes (kernel B8).
+rated mask) of WARP; PMF, IMF and BPR (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from cdae_tpu_torch.data.dataset import Interactions
 from cdae_tpu_torch.models.base import ModelState, RecsysModel, resolve_device
 from cdae_tpu_torch.ops.losses import Loss
 from cdae_tpu_torch.ops.pallas_kernels import (
+    gather_rows_mxu,
     hw_uniform,
     hw_uniform_plain,
     warp_violator_select,
@@ -74,8 +79,7 @@ _LATER = ("is not ported to cdae_tpu_torch yet: it comes with a later "
 class MFConfig:
     """Every field of cdae_tpu's MFConfig, so CLI flags and checkpoints
     carry over. The knobs of the paths not ported yet (num_shared_neg for
-    the BPR slab, warp_pool, gather_mode="mxu", the pallas scatter modes)
-    are kept; their paths raise."""
+    the BPR slab, warp_pool) are kept; their paths raise."""
 
     learn_rate: float = 0.1
     beta: float = 1.0
@@ -101,7 +105,8 @@ class MFConfig:
     # the AdaGrad kernel (B2); None = on a CUDA device
     warp_pool: Optional[int] = None  # WARP pool path (not ported)
     gather_mode: str = "auto"  # auto|native|mxu ("mxu" is kernel B9)
-    scatter_mode: str = "auto"  # every mode but pallas* is one index_add
+    scatter_mode: str = "auto"  # pallas* is kernel B8, every other mode one
+    # index_add
     dtype: Any = torch.float32
 
 
@@ -146,13 +151,15 @@ def _use_mxu_gather(cfg: MFConfig) -> bool:
 
 
 def _gather_factor_bias(factors, bias, idx, cfg: MFConfig):
-    """(rows, bias) of the tables at ``idx``: plain row indexing.
-    ``gather_mode="mxu"`` is kernel B9 and raises."""
+    """(rows, bias) of the tables at ``idx``: plain row indexing, or with
+    ``gather_mode="mxu"`` one B9 gather of ``[factors | bias]`` (the bias
+    rides as an extra column)."""
     if _use_mxu_gather(cfg):
-        raise NotImplementedError(
-            "gather_mode='mxu' is kernel B9 (cdae_tpu gather_rows_mxu), "
-            "which " + _LATER.format(entry="B9")
-            + "; 'auto' and 'native' gather the same rows")
+        D = factors.shape[1]
+        tbl = torch.cat([factors, bias[:, None]], dim=1).to(torch.float32)
+        rows = gather_rows_mxu(tbl, idx.reshape(-1).long())
+        rows = rows.reshape(*idx.shape, D + 1)
+        return rows[..., :D], rows[..., D]
     return factors[idx], bias[idx]
 
 
@@ -194,10 +201,17 @@ def _pairwise_grads(params, u, i, j, w, cfg: MFConfig, loss: Loss,
                     rank_weight=None, update_bias=True):
     """Pair contributions of (u, i) against nn negatives j (B, nn), summed
     into full tables: B user rows, and one aggregation of the B positive
-    and B*nn negative item rows (bias as an extra value column)."""
-    uv_u = params["uv"][u]
-    iv_i, ib_i = _gather_factor_bias(params["iv"], params["ib"], i, cfg)
-    iv_j, ib_j = _gather_factor_bias(params["iv"], params["ib"], j, cfg)
+    and B*nn negative item rows (bias as an extra value column). The
+    B*(1+nn) item rows come from one gather and the B user rows from
+    another (B9's with ``gather_mode="mxu"``)."""
+    B = u.shape[0]
+    iv_rows, ib_rows = _gather_factor_bias(
+        params["iv"], params["ib"], torch.cat([i, j.reshape(-1)]), cfg)
+    iv_i, ib_i = iv_rows[:B], ib_rows[:B]
+    iv_j = iv_rows[B:].reshape(B, -1, iv_rows.shape[-1])
+    ib_j = ib_rows[B:].reshape(B, -1)
+    uv_u = (gather_rows_mxu(params["uv"].to(torch.float32), u.long())
+            if _use_mxu_gather(cfg) else params["uv"][u])
     d_uv_rows, pos_vals, neg_vals, with_bias = _pair_contribs(
         uv_u, iv_i, iv_j, ib_i, ib_j, w, cfg, loss,
         rank_weight=rank_weight, update_bias=update_bias,

@@ -1,7 +1,6 @@
 """The hand-written kernels, each beside its plain PyTorch version.
 
-Port of cdae_tpu/ops/pallas_kernels.py (serving, CDAE and WARP training
-parts):
+Port of cdae_tpu/ops/pallas_kernels.py (every Pallas kernel):
 
   decode_scores          z @ W^T + b'                    csrc/decode_scores.cu
   fused_topk_scores      decode + rated mask (int8 rows) csrc/fused_topk.cu
@@ -19,6 +18,11 @@ parts):
   warp_violator_select   WARP's per-row count of unrated csrc/warp_select.cu
                          items scoring above a threshold
                          + nn uniform picks among them
+  scatter_matmul         out[n] = sum of vals[p] with    csrc/scatter_rows.cu
+                         idx[p] == n, as sorted segments
+                         (a fixed order, no atomics)
+  gather_rows_mxu        table[idx], zero rows for ids   csrc/gather_rows.cu
+                         out of range
 
 The fused dense train step (B4) has its own module, ops/cdae_fused.py.
 
@@ -603,3 +607,118 @@ def warp_violator_select(
 
 
 warp_violator_select.launches = 0
+
+
+# ------------------------------------------------------ row aggregation ----
+
+def scatter_matmul_plain(idx: torch.Tensor, vals: torch.Tensor,
+                         num_rows: int, *, bf16: bool = False
+                         ) -> torch.Tensor:
+    """Plain version of ``scatter_matmul``: one ``index_add_`` of the
+    in-range rows into f32 zeros (on the card it sums duplicate rows with
+    atomics, in no fixed order)."""
+    idx = idx.reshape(-1).to(torch.int64)
+    v = vals.to(torch.float32)
+    if bf16:
+        v = v.to(torch.bfloat16).to(torch.float32)
+    valid = (idx >= 0) & (idx < num_rows)
+    keep = valid.reshape((-1,) + (1,) * (v.dim() - 1))
+    out = torch.zeros((num_rows,) + tuple(v.shape[1:]), dtype=torch.float32,
+                      device=v.device)
+    return out.index_add_(0, torch.where(valid, idx, 0),
+                          torch.where(keep, v, 0.0))
+
+
+def scatter_matmul(idx: torch.Tensor, vals: torch.Tensor, num_rows: int, *,
+                   bf16: bool = False) -> torch.Tensor:
+    """Row aggregation ``out[n] = sum_{p : idx[p] == n} vals[p]`` for n in
+    [0, num_rows): ``idx`` (P,) int64, ``vals`` (P, C) or (P,) float32;
+    returns (num_rows, C) or (num_rows,) float32. Ids outside [0, num_rows)
+    contribute nothing. ``bf16`` rounds each contribution to bf16 before
+    the f32 sum (cdae_tpu's default bf16 operands). The kernel sums each
+    row's contributions in ascending p (a stable sort of the ids, then
+    sorted segments), so its result is the same bits on every run."""
+    if not _on_cuda(vals):
+        return scatter_matmul_plain(idx, vals, num_rows, bf16=bf16)
+    from cdae_tpu_torch.ops import cuda_lib
+
+    dev = vals.device
+    if vals.dim() not in (1, 2):
+        raise ValueError(f"vals has shape {tuple(vals.shape)}; expected "
+                         "(P, C) or (P,)")
+    P = vals.shape[0]
+    C = 1 if vals.dim() == 1 else vals.shape[1]
+    _require(vals, "vals", torch.float32, tuple(vals.shape), dev)
+    _require(idx, "idx", torch.int64, (P,), dev)
+    if not 0 <= num_rows < 2**31:
+        raise ValueError(f"num_rows={num_rows}: the kernel takes "
+                         "0 <= num_rows < 2**31")
+    out = torch.empty((num_rows,) + tuple(vals.shape[1:]),
+                      dtype=torch.float32, device=dev)
+    if num_rows == 0:
+        return out
+    # index preparation: the ids in ascending order, ties in ascending p
+    sorted_ids, order = torch.sort(idx, stable=True)
+    rc = cuda_lib.lib().cdae_scatter_rows(
+        sorted_ids.data_ptr(), order.data_ptr(), vals.data_ptr(),
+        out.data_ptr(), P, num_rows, C, int(bool(bf16)), _stream(dev),
+    )
+    cuda_lib.check(rc, "scatter_matmul")
+    scatter_matmul.launches += 1
+    return out
+
+
+scatter_matmul.launches = 0
+
+
+# ------------------------------------------------------------ row gather ----
+
+def gather_rows_mxu_plain(table: torch.Tensor, idx: torch.Tensor
+                          ) -> torch.Tensor:
+    """Plain version of ``gather_rows_mxu``: library row indexing, with
+    the rows of out-of-range ids set to zero."""
+    idx = idx.reshape(-1).to(torch.int64)
+    N, C = table.shape
+    valid = (idx >= 0) & (idx < N)
+    if N == 0:
+        return torch.zeros((idx.shape[0], C), dtype=torch.float32,
+                           device=table.device)
+    rows = table[torch.where(valid, idx, 0)].to(torch.float32)
+    return torch.where(valid[:, None], rows, 0.0)
+
+
+def gather_rows_mxu(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(P, C) float32 rows ``table[idx]`` of a (N, C) float32 table for
+    ``idx`` (P,) int64; an id outside [0, N) gives a zero row. Exact (a
+    copy)."""
+    if not _on_cuda(table):
+        return gather_rows_mxu_plain(table, idx)
+    from cdae_tpu_torch.ops import cuda_lib
+
+    dev = table.device
+    if table.dim() != 2 or idx.dim() != 1:
+        raise ValueError(f"table {tuple(table.shape)} and idx "
+                         f"{tuple(idx.shape)}: expected (N, C) and (P,)")
+    N, C = table.shape
+    P = idx.shape[0]
+    _require(table, "table", torch.float32, (N, C), dev)
+    _require(idx, "idx", torch.int64, (P,), dev)
+    if P * C >= 2**31:
+        raise ValueError(f"P*C = {P * C}: the kernel takes < 2**31 elements")
+    out = torch.empty((P, C), dtype=torch.float32, device=dev)
+    if P == 0 or C == 0:
+        return out
+    # the widest vector (16, 8 or 4 bytes) that C and both pointers allow
+    vec = next(v for v in (4, 2, 1) if C % v == 0
+               and table.data_ptr() % (4 * v) == 0
+               and out.data_ptr() % (4 * v) == 0)
+    rc = cuda_lib.lib().cdae_gather_rows(
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), P, N, C, vec,
+        _stream(dev),
+    )
+    cuda_lib.check(rc, "gather_rows_mxu")
+    gather_rows_mxu.launches += 1
+    return out
+
+
+gather_rows_mxu.launches = 0

@@ -1,17 +1,25 @@
-"""On-device integer draws (port of cdae_tpu/ops/sampling.py, the part the
-WARP dense path uses).
+"""On-device integer draws (port of cdae_tpu/ops/sampling.py, the parts the
+WARP dense path and FISM use).
 
 ``hw_randint`` is cdae_tpu's uniform int in [0, maxval) built on the
 uniform stream of ``hw_uniform`` (kernel B1) with a salt XORed into the
 seed. cdae_tpu derives that seed from a PRNG key (``key_seed``); the port
 passes its host step seeds (utils/random.py ``step_seed``) instead.
 
-``sample_unrated`` and ``is_rated`` (the exact complement sampler and the
-CSR membership test) serve WARP's scan and pool paths and the sparse CDAE
-step; they come with those slices (ROADMAP A7, A8).
+``sample_unrated`` is the exact complement sampler: given a user's rated
+items R sorted ascending (padded with num_items), the u-th unrated item is
+``u + k`` with k the number of rated r_j with ``r_j - j <= u``. cdae_tpu
+counts k in three ways by the number of samples (a compare-sum, a chunked
+scan, a sort-based searchsorted), which all give the same integer; here it
+is one ``torch.searchsorted``.
+
+``is_rated`` (the CSR membership test) serves WARP's scan and pool paths
+and the sparse CDAE step; it comes with those slices (ROADMAP A7, A8).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -34,3 +42,49 @@ def hw_randint(seed: int, shape, maxval, salt: int = 0, *, device,
     mx = torch.as_tensor(maxval, device=u01.device)
     scaled = (u01 * mx.to(torch.float32)).to(torch.int32)
     return torch.minimum(scaled, mx.to(torch.int32) - 1)
+
+
+def sample_unrated(
+    seed: int,  # the step seed of the draws (utils/random.py step_seed)
+    sorted_items: torch.Tensor,  # (B, L) ascending, padded with num_items
+    lengths: torch.Tensor,  # (B,) number of real entries per row
+    num_items: int,
+    num_samples: int,
+    *,
+    hw: bool = False,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Uniform samples from each row's UNRATED items; (B, num_samples)
+    int64.
+
+    The draws ``u`` (uniform in [0, free) per row, free = max(num_items -
+    length, 1)) are injected, or come from ``hw_randint(seed, ...)`` with
+    ``hw`` (B1's hash stream; the float scaling biases a draw by less than
+    free * 2**-24), or else from a ``torch.Generator`` seeded with ``seed``
+    (float64 uniforms scaled and floored, a bias below free * 2**-53).
+
+    Rows whose complement is empty (length == num_items) come back as the
+    sentinel id ``num_items``: callers must zero-weight slots with id >=
+    num_items, since clipping it would turn a rated item into a negative."""
+    B, L = sorted_items.shape
+    dev = sorted_items.device
+    lengths = lengths.to(torch.int64)
+    free = torch.clamp(num_items - lengths, min=1)[:, None]
+    if u is None:
+        shape = (B, num_samples)
+        if hw:
+            u = hw_randint(seed, shape, free, device=dev)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(int(seed) & _MASK32)
+            r = torch.rand(shape, generator=gen, dtype=torch.float64,
+                           device=dev)
+            u = torch.minimum((r * free).to(torch.int64), free - 1)
+    u = torch.as_tensor(u, device=dev).to(torch.int64)
+    # rank transform: R[j] - j counts the unrated ids below R[j]; padded
+    # slots become num_items, above every valid draw, so the row stays
+    # sorted
+    pos = torch.arange(L, device=dev)[None, :]
+    ranks = torch.where(pos < lengths[:, None],
+                        sorted_items.to(torch.int64) - pos, num_items)
+    k = torch.searchsorted(ranks.contiguous(), u.contiguous(), right=True)
+    return u + k

@@ -35,7 +35,31 @@ Phases, each printed as one JSON line:
   train_warp_xla -- the same 10 epochs with use_pallas=False (the cumsum
              route): R@10 within 0.03 of the kernel run
   train_speed_warp -- warm WARP training users/s, both routes
-Then the kernel table (each kernel's launches from the path that owns it;
+  kernel_scatter -- the row aggregation (B8) against its plain version at
+             a FISM sparse step's shapes (the largest batch of the run's
+             data, sentinel ids included, 2-D and 1-D values) and WARP's,
+             f32 and bf16 contributions; two launches give the same bits
+  kernel_gather -- the row gather (B9) exactly equal to its plain version
+             at WARP's shapes; out-of-range ids give zero rows
+  FISM training path (counts from 0 before train_fism, read after
+  train_fism_sparse; B8, B2):
+    train_fism -- the same low-rank data, D=10, 10 epochs through the CLI
+             --task train --method FISM: the dense-slab route (B2)
+    train_fism_sparse -- the same 10 epochs with dense_mode=False through
+             SGDSolver.train: the sparse route, whose sums are B8's; R@10
+             within 0.15 of train_fism's
+  fism_sparse_checks -- one sparse epoch with B8 against one with its
+             plain version (index_add) from the same reset and draws, and
+             two 2-epoch runs bit for bit
+  train_speed_fism -- warm FISM training users/s, both routes
+  WARP with B8 and B9 (counts from 0 before, read after; B9, B8, B7, B2):
+    train_warp_mxu -- 2 epochs of train_warp's configuration with
+             gather_mode="mxu" and scatter_mode="pallas"
+  warp_mxu_vs_native -- the same 2 epochs with the native gather and
+             B8 (bit for bit), and with the native gather and index_add
+             (one step within 1e-4; the 2-epoch distance and the native
+             route's own run-to-run spread printed, not gated)
+Then the whole run's wall time, the kernel table (each kernel's launches from the path that owns it;
 bound_ms is the least time for the kernel's work at the card's published
 peaks: HBM bytes at 3.35 TB/s against 32-bit operations at 67 T/s), the
 card's name and power limit, and, last, the ok line. Any failed phase
@@ -65,6 +89,13 @@ TOL = 1e-4  # f32 sums in another order than the library GEMM
 FUSED_RTOL, FUSED_ATOL = 3e-4, 1e-5
 FUSED_OUTPUTS = ("W", "W_ag", "b_prime", "bp_ag", "hg")
 WARP_R10_GATE = 0.03  # the kernel and cumsum routes' R@10 (BASELINE.md)
+# the dense and sparse FISM routes' R@10 (tests/test_models_generic.py's
+# dense-vs-sparse gate)
+FISM_R10_GATE = 0.15
+# B8 against its plain version: rtol, and atol times the largest row sum
+# (the two sum in different orders)
+ROWS_RTOL, ROWS_ATOL = 1e-5, 1e-6
+ROUTE_REL_TOL = 1e-4  # two routes' params: ||a - b|| / ||b|| per table
 WARP_CHI2_BOUND = 330.0  # tests/test_pallas.py's pooled bound, dof 255
 # the published peaks of an H100 SXM at 700 W: HBM bytes, and 32-bit
 # operations outside the tensor cores (67 TFLOP/s f32, an FMA counted as
@@ -91,14 +122,20 @@ KERNELS = {
     "adagrad_update": ("pallas_kernels",
                        "cdae_tpu_torch/csrc/adagrad_update.cu",
                        "cdae_tpu/ops/pallas_kernels.py:108",
-                       ("training", "warp_training")),
+                       ("training", "warp_training", "fism_training",
+                        "warp_mxu")),
     "cdae_dense_step_fused": ("cdae_fused", "cdae_tpu_torch/csrc/cdae_fused.cu",
                               "cdae_tpu/ops/cdae_fused.py:249",
                               ("fused_training",)),
     "warp_violator_select": ("pallas_kernels",
                              "cdae_tpu_torch/csrc/warp_select.cu",
                              "cdae_tpu/ops/pallas_kernels.py:1028",
-                             ("warp_training",)),
+                             ("warp_training", "warp_mxu")),
+    "scatter_matmul": ("pallas_kernels", "cdae_tpu_torch/csrc/scatter_rows.cu",
+                       "cdae_tpu/ops/pallas_kernels.py:1147",
+                       ("fism_training", "warp_mxu")),
+    "gather_rows_mxu": ("pallas_kernels", "cdae_tpu_torch/csrc/gather_rows.cu",
+                        "cdae_tpu/ops/pallas_kernels.py:856", ("warp_mxu",)),
 }
 
 
@@ -883,7 +920,373 @@ def phase_train_speed_warp(torch, held):
     return out
 
 
+# ---------------------------------------------------- B8, B9 and FISM ----
+
+def _rows_ok(torch, out, plain):
+    """B8 against its plain version: |out - plain| <= ROWS_RTOL * |plain| +
+    ROWS_ATOL * max |plain| everywhere; returns (ok, max_abs_err)."""
+    scale = max(plain.abs().max().item() if plain.numel() else 0.0, 1.0)
+    err = (out - plain).abs()
+    excess = err - ROWS_ATOL * scale - ROWS_RTOL * plain.abs()
+    return (not plain.numel() or excess.max().item() <= 0.0,
+            err.max().item() if plain.numel() else 0.0)
+
+
+def _fism_batch_ids(torch, train, nn=5, batch=128):
+    """The item ids of the sparse FISM step's largest user batch (the
+    longest rows, bucketed L), positives then nn * L complement draws, as
+    the step aggregates them (padding slots carry the sentinel I)."""
+    from cdae_tpu_torch.models.base import iter_user_batches
+    from cdae_tpu_torch.ops.sampling import sample_unrated
+
+    dev = torch.device("cuda")
+    mb = list(iter_user_batches(train.padded(), batch,
+                                bucket_by_length=True))[-1]
+    items = torch.as_tensor(mb.items, device=dev).long()
+    lengths = torch.as_tensor(mb.lengths, device=dev).long()
+    neg = sample_unrated(SEED, items, lengths, train.num_items,
+                         nn * items.shape[1])
+    return items.reshape(-1), torch.cat([items.reshape(-1), neg.reshape(-1)])
+
+
+def phase_kernel_scatter(torch, held, results):
+    """B8 against its plain version at the FISM sparse step's shapes (the
+    Q + bi aggregation, (P, 11) and its 1-D bias column, and the P
+    aggregation, (P, 10), of the largest batch of the run's data) and at
+    WARP's (49,152 item rows x 11, 8,192 user rows x 10), with f32 and bf16
+    contributions. Two launches on one input must give the same bits.
+    library_ms: one index_add_ on the same values, sentinel ids sent to a
+    spare row (index_add_ takes no id out of range)."""
+    import cdae_tpu_torch.ops.pallas_kernels as P
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    train = held["ml1m"][1][0]
+    I, U = train.num_items, train.num_users
+    p_ids, qb_ids = _fism_batch_ids(torch, train)
+    cases = (("fism_q_bi", qb_ids, I, 11), ("fism_bi_1d", qb_ids, I, None),
+             ("fism_p", p_ids, I, 10),
+             ("warp_item", torch.randint(0, I, (49152,), generator=g,
+                                         device=dev), I, 11),
+             ("warp_user", torch.randint(0, U, (8192,), generator=g,
+                                         device=dev), U, 10))
+    bad = []
+    for name, idx, N, C in cases:
+        Pn = idx.shape[0]
+        shape = (Pn,) if C is None else (Pn, C)
+        vals = torch.randn(shape, generator=g, device=dev)
+        valid = (idx >= 0) & (idx < N)
+        row = dict(phase="kernel_scatter", kernel="scatter_matmul", case=name,
+                   P=Pn, N=N, C=C or 1, sentinel_ids=int((~valid).sum()),
+                   rtol=ROWS_RTOL, atol_scale=ROWS_ATOL)
+        for bf16 in (False, True):
+            out = P.scatter_matmul(idx, vals, N, bf16=bf16)
+            again = P.scatter_matmul(idx, vals, N, bf16=bf16)
+            plain = P.scatter_matmul_plain(idx, vals, N, bf16=bf16)
+            torch.cuda.synchronize()
+            ok, err = _rows_ok(torch, out, plain)
+            same = bool(torch.equal(out, again))
+            key = "bf16" if bf16 else "f32"
+            row[key] = dict(max_abs_err=err, ok=ok, bit_equal_relaunch=same)
+            if not (ok and same):
+                bad.append(f"scatter_matmul {name} {key}")
+        lib_idx = torch.where(valid, idx, N)
+        spare = (N + 1,) + tuple(shape[1:])
+        row.update(
+            max_abs_err=max(row["f32"]["max_abs_err"],
+                            row["bf16"]["max_abs_err"]),
+            ms=median_ms(lambda: P.scatter_matmul(idx, vals, N)),
+            plain_ms=median_ms(lambda: P.scatter_matmul_plain(idx, vals, N)),
+            library_ms=median_ms(lambda: torch.zeros(
+                spare, device=dev).index_add_(0, lib_idx, vals)),
+            # values, ids and the output once each; one add per value
+            **bound(4.0 * vals.numel() + 8.0 * Pn + 4.0 * N * (C or 1),
+                    float(vals.numel())))
+        emit(row)
+        results.setdefault("scatter_matmul", row)
+    if bad:
+        raise AssertionError(f"B8 disagrees with its plain version or "
+                             f"changes between launches: {bad}")
+
+
+def phase_kernel_gather(torch, results):
+    """B9 exactly equal to its plain version at WARP's shapes (the (3706,
+    11) item table with its bias column, 49,152 rows; the (6040, 10) user
+    table, 8,192 rows), then with ids out of range, whose rows must be
+    zero. library_ms: torch.index_select on the same (in-range) ids."""
+    import cdae_tpu_torch.ops.pallas_kernels as P
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    bad = []
+    for name, N, C, Pn in (("warp_item", 3706, 11, 49152),
+                           ("warp_user", 6040, 10, 8192)):
+        table = torch.randn((N, C), generator=g, device=dev)
+        idx = torch.randint(0, N, (Pn,), generator=g, device=dev)
+        out = P.gather_rows_mxu(table, idx)
+        exact = bool(torch.equal(out, P.gather_rows_mxu_plain(table, idx)))
+        oor = idx.clone()
+        oor[:97] = N
+        oor[97:200] = -1
+        out2 = P.gather_rows_mxu(table, oor)
+        torch.cuda.synchronize()
+        exact_oor = bool(torch.equal(out2,
+                                     P.gather_rows_mxu_plain(table, oor)))
+        zero_rows = not out2[:200].any().item()
+        row = dict(phase="kernel_gather", kernel="gather_rows_mxu", case=name,
+                   N=N, C=C, P=Pn, exact=exact, exact_out_of_range=exact_oor,
+                   out_of_range_rows_zero=zero_rows,
+                   max_abs_err=(out - table[idx]).abs().max().item(),
+                   ms=median_ms(lambda: P.gather_rows_mxu(table, idx)),
+                   plain_ms=median_ms(lambda: P.gather_rows_mxu_plain(
+                       table, idx)),
+                   library_ms=median_ms(lambda: torch.index_select(
+                       table, 0, idx)),
+                   # the ids and the table read once, the rows written once
+                   **bound(8.0 * Pn + 4.0 * N * C + 4.0 * Pn * C, 0.0))
+        emit(row)
+        results.setdefault("gather_rows_mxu", row)
+        if not (exact and exact_oor and zero_rows):
+            bad.append(f"gather_rows_mxu {name}")
+    if bad:
+        raise AssertionError(f"B9 is not exact: {bad}")
+
+
+FISM_TRAIN = ["--task", "train", "--method", "FISM", "--num_dim", "10",
+              "--num_neg", "5", "--loss_type", "SQUARE", "--learn_rate",
+              "0.1", "--batch_size", "1024", "--max_iters", "10",
+              "--eval_iters", "5", "--skip_popularity", "--seed", str(SEED),
+              "--test_ratio", "0.2"]
+
+
+def phase_train_fism(torch, tmp, held):
+    """CLI --task train --method FISM on the ML-1M-scale low-rank data
+    (the repo's FISM configuration: D=10, num_neg 5, batch 1024 // 8 =
+    128 users; SQUARE loss and lr 0.1, scripts/parity_zoo.py's), 10 epochs,
+    TOPN at 0, 5 and 10. The dense-slab route: dense_R resident, B2."""
+    from cdae_tpu_torch import cli
+    from cdae_tpu_torch.data import io as data_io
+    from cdae_tpu_torch.solver.solver import _params_finite
+
+    cache = os.path.join(tmp, "ml1m_lowrank.bin")
+    data_io.save_interactions(held["ml1m_data"], cache)
+    t0 = time.perf_counter()
+    solver = cli.train(cli.build_arg_parser().parse_args(
+        FISM_TRAIN + ["--cache_file", cache]))
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    hist = solver.history
+    finite = _params_finite(solver.state.params)
+    dense = "dense_R" in solver.state.aux
+    held["fism"] = solver
+    return dict(phase="train_fism", users=6040, items=3706, D=10,
+                batch=solver.model.cfg.batch_size, epochs=10,
+                cli_seconds=cli_s, dense_R=dense,
+                recall_at_10={int(r["iter"]): r["R@10"] for r in hist},
+                map_at_10={int(r["iter"]): r["MAP@10"] for r in hist},
+                params_finite=finite,
+                ok=finite and dense and hist[-1]["R@10"] > hist[0]["R@10"])
+
+
+def phase_train_fism_sparse(torch, held):
+    """The same 10 epochs with dense_mode=False through SGDSolver.train:
+    the sparse step, its Q + bi and P sums in B8 (scatter_mode auto pins
+    "pallas" on CUDA). R@10 rises and lands within 0.15 of train_fism's."""
+    import dataclasses
+
+    import cdae_tpu_torch.ops.pallas_kernels as P
+    from cdae_tpu_torch.models.fism import FISM
+    from cdae_tpu_torch.solver.solver import SGDSolver, _params_finite
+
+    dense = held["fism"]
+    train, test = held["ml1m"][1]
+    model = FISM(dataclasses.replace(dense.model.cfg, dense_mode=False),
+                 device="cuda")
+    solver = SGDSolver(model, max_iteration=10, eval_iterations=5,
+                       learn_rate=dense.learn_rate0, seed=SEED,
+                       verbose=False)
+    before = P.scatter_matmul.launches
+    t0 = time.perf_counter()
+    solver.train(train, test, ["TOPN"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b8 = P.scatter_matmul.launches - before
+    hist = solver.history
+    r_s, r_d = hist[-1]["R@10"], dense.history[-1]["R@10"]
+    finite = _params_finite(solver.state.params)
+    held["fism_sparse"] = solver
+    return dict(phase="train_fism_sparse", epochs=10, seconds=wall,
+                scatter_mode=model.cfg.scatter_mode,
+                steps_per_epoch=len(solver.state.aux["sparse_batches"]),
+                b8_launches=b8,
+                recall_at_10={int(r["iter"]): r["R@10"] for r in hist},
+                map_at_10={int(r["iter"]): r["MAP@10"] for r in hist},
+                recall_at_10_dense=r_d, diff=abs(r_s - r_d),
+                tol=FISM_R10_GATE, params_finite=finite,
+                ok=finite and b8 > 0 and "dense_R" not in solver.state.aux
+                and r_s > hist[0]["R@10"] and abs(r_s - r_d) <= FISM_R10_GATE)
+
+
+def _rel_diff(torch, a, b) -> float:
+    """max over tables of ||a - b|| / ||b|| (Frobenius)."""
+    return max(((a[k].double() - b[k].double()).norm()
+                / b[k].double().norm().clamp_min(1e-30)).item() for k in b)
+
+
+def phase_fism_sparse_checks(torch, held):
+    """From the same reset and seed (so the same complement draws): one
+    sparse epoch with B8 against one with its plain version (index_add_,
+    scatter_mode "scatter"), params within 1e-4 relative; then two runs of
+    two epochs with B8, bit for bit equal (and, for the record, the same
+    for index_add_)."""
+    import dataclasses
+
+    from cdae_tpu_torch.models.fism import FISM
+
+    cfg = held["fism_sparse"].model.cfg
+    lr = held["fism_sparse"].learn_rate0
+    train = held["ml1m"][1][0]
+
+    def run(mode, epochs):
+        model = FISM(dataclasses.replace(cfg, scatter_mode=mode),
+                     device="cuda")
+        model.set_learn_rate(lr)
+        state = model.reset(train, seed=SEED)
+        for _ in range(epochs):
+            model.train_one_iteration(state, SEED)
+        torch.cuda.synchronize()
+        return state.params
+
+    rel = _rel_diff(torch, run("pallas", 1), run("scatter", 1))
+    a, b = run("pallas", 2), run("pallas", 2)
+    bit_equal = all(torch.equal(a[k], b[k]) for k in a)
+    c, d = run("scatter", 2), run("scatter", 2)
+    return dict(phase="fism_sparse_checks", rel_diff_vs_plain=rel,
+                tol=ROUTE_REL_TOL, b8_runs_bit_equal=bit_equal,
+                index_add_runs_bit_equal=all(torch.equal(c[k], d[k])
+                                             for k in c),
+                ok=rel <= ROUTE_REL_TOL and bit_equal)
+
+
+def phase_train_speed_fism(torch, held):
+    """Warm FISM training throughput, dense-slab and sparse (B8) routes:
+    one warm-up epoch, 2 timed epochs (host clock between synchronizes),
+    users/s = users * epochs / wall; then one epoch under torch.profiler."""
+    import dataclasses
+
+    from cdae_tpu_torch.models.fism import FISM
+    from cdae_tpu_torch.solver.solver import _params_finite
+
+    cfg = held["fism"].model.cfg
+    train = held["ml1m"][1][0]
+    U = train.num_users
+    out = dict(phase="train_speed_fism", users=U, items=train.num_items,
+               batch=cfg.batch_size)
+    ok = True
+    for route, dense in (("dense", True), ("sparse", False)):
+        model = FISM(dataclasses.replace(cfg, dense_mode=dense),
+                     device="cuda")
+        state = model.reset(train, seed=SEED)
+        model.train_one_iteration(state, SEED)  # warm-up, builds batches
+        steps = (state.aux["dense_batches"][0].shape[0] if dense
+                 else len(state.aux["sparse_batches"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            model.train_one_iteration(state, SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = _profile(torch, lambda: model.train_one_iteration(state, SEED))
+        prof["launches_per_step"] = prof.pop("device_kernels") / steps
+        finite = _params_finite(state.params)
+        out[route] = dict(seconds_2_epochs=wall, users_per_s=U * 2 / wall,
+                          steps_per_epoch=steps,
+                          ms_per_step=wall * 1e3 / (2 * steps),
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          params_finite=finite, profiled_epoch=prof)
+        ok = ok and finite
+        del state
+    out["ok"] = ok
+    return out
+
+
+def _warp_epochs(torch, held, epochs=2, data=None, **kw):
+    """``epochs`` epochs of train_warp's configuration (with ``kw``) from a
+    reset with the run's seed, on ``data`` (default the training split)."""
+    import dataclasses
+
+    from cdae_tpu_torch.models.mf import WARP
+
+    model = WARP(dataclasses.replace(held["warp"].model.cfg, **kw),
+                 device="cuda")
+    state = model.reset(held["ml1m"][1][0] if data is None else data,
+                        seed=SEED)
+    for _ in range(epochs):
+        model.train_one_iteration(state, SEED)
+    torch.cuda.synchronize()
+    return model, state
+
+
+MXU = dict(gather_mode="mxu", scatter_mode="pallas")
+NATIVE = dict(gather_mode="auto", scatter_mode="auto")
+
+
+def phase_train_warp_mxu(torch, held):
+    """train_warp's configuration with gather_mode="mxu" (B9) and
+    scatter_mode="pallas" (B8), 2 epochs from a reset: B7 and B2 run as
+    on the default route."""
+    from cdae_tpu_torch.solver.solver import _params_finite
+
+    t0 = time.perf_counter()
+    model, state = _warp_epochs(torch, held, **MXU)
+    wall = time.perf_counter() - t0
+    held["warp_mxu"] = state.params
+    finite = _params_finite(state.params)
+    return dict(phase="train_warp_mxu", epochs=2, seconds=wall,
+                gather_mode=model.cfg.gather_mode,
+                scatter_mode=model.cfg.scatter_mode,
+                use_pallas=model.cfg.use_pallas, params_finite=finite,
+                ok=finite)
+
+
+def phase_warp_mxu_vs_native(torch, held):
+    """The mxu route against the native gather and index_add_ (modes
+    "auto") from the same reset and draws. B9 is exact, so with the same
+    B8 scatter the native gather must give the same bits over 2 epochs.
+    B8 differs from index_add_ only in the order of its sums: one step (an
+    epoch of 8,000 instances) within 1e-4 relative. Over 2 epochs WARP's
+    violator test and try counts turn rounding differences into other
+    picks, so the native route differs from itself between runs
+    (index_add_'s atomics): the 2-epoch distance to the native route and
+    that run-to-run spread are printed for the record and gate nothing."""
+    from cdae_tpu_torch.data.dataset import Interactions
+
+    mxu = held["warp_mxu"]
+    _, same = _warp_epochs(torch, held, gather_mode="auto",
+                           scatter_mode="pallas")
+    bit_equal = all(torch.equal(mxu[k], same.params[k]) for k in mxu)
+    _, native = _warp_epochs(torch, held, **NATIVE)
+    _, native2 = _warp_epochs(torch, held, **NATIVE)
+    rel = _rel_diff(torch, mxu, native.params)
+    spread = _rel_diff(torch, native2.params, native.params)
+    train = held["ml1m"][1][0]
+    n = 8000
+    one_step = Interactions.from_arrays(
+        train.users[:n], train.items[:n], train.ratings[:n],
+        num_users=train.num_users, num_items=train.num_items)
+    rel1 = _rel_diff(torch,
+                     _warp_epochs(torch, held, 1, one_step, **MXU)[1].params,
+                     _warp_epochs(torch, held, 1, one_step,
+                                  **NATIVE)[1].params)
+    return dict(phase="warp_mxu_vs_native", epochs=2,
+                bit_equal_same_scatter=bit_equal, rel_diff_one_step=rel1,
+                rel_diff=rel, native_run_to_run=spread, tol=ROUTE_REL_TOL,
+                ok=bit_equal and rel1 <= ROUTE_REL_TOL)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -972,6 +1375,34 @@ def main() -> int:
         run("train_speed_warp", lambda: phase_train_speed_warp(torch, held))
     else:
         failed.append("WARP training phases (no WARP run to build on)")
+
+    if "ml1m_data" in held:
+        run("kernel_scatter", lambda: phase_kernel_scatter(torch, held,
+                                                           results))
+        run("kernel_gather", lambda: phase_kernel_gather(torch, results))
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts("fism_training")
+            run("train_fism", lambda: phase_train_fism(torch, tmp, held))
+            if "fism" in held:
+                run("train_fism_sparse",
+                    lambda: phase_train_fism_sparse(torch, held))
+            read_counts("fism_training", launches, failed)
+    if "fism_sparse" in held:
+        run("fism_sparse_checks", lambda: phase_fism_sparse_checks(torch,
+                                                                   held))
+        run("train_speed_fism", lambda: phase_train_speed_fism(torch, held))
+    else:
+        failed.append("FISM phases (no FISM runs to build on)")
+    if "warp" in held:
+        reset_counts("warp_mxu")
+        run("train_warp_mxu", lambda: phase_train_warp_mxu(torch, held))
+        read_counts("warp_mxu", launches, failed)
+    if "warp_mxu" in held:
+        run("warp_mxu_vs_native", lambda: phase_warp_mxu_vs_native(torch,
+                                                                   held))
+    else:
+        failed.append("WARP mxu phases (no WARP run to build on)")
+    emit(dict(phase="wall", seconds=time.perf_counter() - t_start))
 
     table = []
     for name, (_, source, replaces, paths) in KERNELS.items():

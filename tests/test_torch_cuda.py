@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels of cdae_tpu_torch against their plain
 PyTorch versions, on a GPU, at ragged shapes: the serving kernels (decode,
 fused top-k), the training kernels (hw_uniform and adagrad_update bit
-for bit, the fused step within f32 summation-order tolerance) and the WARP
-violator kernel (counts and picks exact on dyadic inputs). Every test
+for bit, the fused step within f32 summation-order tolerance), the WARP
+violator kernel (counts and picks exact on dyadic inputs), and the row
+aggregation (B8, to summation-order tolerance and the same bits on every
+launch) and row gather (B9, exact) with the paths that launch them. Every test
 is marked ``cuda`` and skips when torch.cuda.is_available() is False (the
 kernels have no CPU mode).
 
@@ -306,3 +308,121 @@ def test_warp_violator_select_rejects_bad_inputs(cuda, rng_np):
         wide = torch.zeros((50, 129), device=cuda)
         P.warp_violator_select(1, torch.zeros((4, 129), device=cuda), wide,
                                ib, thr, mask, 5)
+
+
+# ------------------------------------------- row aggregation and gather ----
+
+def _agg_inputs(rng, Pn, N, C):
+    shape = (Pn,) if C is None else (Pn, C)
+    vals = rng.standard_normal(shape).astype(np.float32)
+    idx = rng.integers(0, N, Pn).astype(np.int64)
+    idx[: Pn // 10] = N  # the sentinel
+    idx[Pn // 10: Pn // 8] = -3
+    return rng.permutation(idx), vals
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Pn,N,C", [
+    (0, 7, 5), (1, 1, 1), (333, 17, None), (5000, 301, 11),
+    (49152, 3706, 11), (8192, 6040, 10), (20000, 100, 70),
+])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_scatter_matmul_kernel_matches_plain(cuda, rng_np, Pn, N, C, bf16):
+    """B8 against its plain version: f32 sums in another order, so rtol
+    1e-5 and atol 1e-6 of the largest row sum; two launches on one input
+    give the same bits (no atomics)."""
+    idx, vals = _on(cuda, *_agg_inputs(rng_np, Pn, N, C))
+    want = P.scatter_matmul_plain(idx, vals, N, bf16=bf16)
+    before = P.scatter_matmul.launches
+    got = P.scatter_matmul(idx, vals, N, bf16=bf16)
+    again = P.scatter_matmul(idx, vals, N, bf16=bf16)
+    torch.cuda.synchronize()
+    assert P.scatter_matmul.launches == before + 2
+    assert torch.equal(got, again)
+    scale = max(float(want.abs().max()) if want.numel() else 0.0, 1.0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
+    dead = torch.zeros(N, dtype=torch.bool, device=cuda)
+    live = (idx >= 0) & (idx < N)
+    dead[idx[live]] = True
+    assert not got[~dead].any()  # rows no live id reaches stay zero
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Pn,N,C", [(0, 5, 3), (301, 777, 13), (400, 50, 11),
+                                   (49152, 3706, 11), (8192, 6040, 10),
+                                   (100, 9, 4), (65, 20, 128)])
+def test_gather_rows_kernel_is_exact(cuda, rng_np, Pn, N, C):
+    table = torch.from_numpy(rng_np.standard_normal((N, C))
+                             .astype(np.float32)).to(cuda)
+    idx, _ = _agg_inputs(rng_np, Pn, N, 1)
+    idx = torch.from_numpy(idx).to(cuda)
+    before = P.gather_rows_mxu.launches
+    got = P.gather_rows_mxu(table, idx)
+    torch.cuda.synchronize()
+    assert P.gather_rows_mxu.launches == before + (1 if Pn > 0 else 0)
+    assert torch.equal(got, P.gather_rows_mxu_plain(table, idx))
+    out = (idx < 0) | (idx >= N)
+    assert not got[out].any()
+    # an offset view whose rows are not 16-byte aligned takes narrower
+    # vectors and stays exact
+    if C % 4 == 0 and N > 1:
+        view = table.reshape(-1)[1: 1 + (N - 1) * C].reshape(N - 1, C)
+        ids = idx.clamp(-1, N - 1)
+        assert torch.equal(P.gather_rows_mxu(view, ids),
+                           P.gather_rows_mxu_plain(view, ids))
+
+
+@pytest.mark.cuda
+def test_row_kernels_reject_bad_inputs(cuda):
+    v = torch.ones((4, 3), device=cuda)
+    with pytest.raises(TypeError):
+        P.scatter_matmul(torch.zeros(4, dtype=torch.int32, device=cuda), v, 5)
+    with pytest.raises(ValueError):
+        P.scatter_matmul(torch.zeros(3, dtype=torch.long, device=cuda), v, 5)
+    with pytest.raises(TypeError):
+        P.gather_rows_mxu(v.double(), torch.zeros(2, dtype=torch.long,
+                                                  device=cuda))
+    with pytest.raises(ValueError):
+        P.gather_rows_mxu(v, torch.zeros(2, dtype=torch.long))  # CPU ids
+
+
+@pytest.mark.cuda
+def test_cuda_paths_launch_the_row_kernels(cuda, rng_np):
+    """scatter_add_rows(mode="pallas"), a FISM sparse step (auto pins
+    pallas on CUDA) and a WARP step with gather_mode="mxu" on CUDA tensors
+    raise the kernels' counters: the CUDA path never takes a plain
+    version."""
+    from cdae_tpu_torch.data.synthetic import lowrank_interactions
+    from cdae_tpu_torch.models.fism import FISM, FISMConfig
+    from cdae_tpu_torch.models.mf import WARP, MFConfig
+    from cdae_tpu_torch.ops.scatter import scatter_add_rows
+
+    before = P.scatter_matmul.launches
+    out = scatter_add_rows(torch.zeros((5, 2), device=cuda),
+                           torch.tensor([0, 4, 4, 5], device=cuda),
+                           torch.ones((4, 2), device=cuda), mode="pallas")
+    assert P.scatter_matmul.launches == before + 1
+    assert out.tolist() == [[1, 1], [0, 0], [0, 0], [0, 0], [2, 2]]
+
+    data = lowrank_interactions(60, 80, 10, seed=3)
+    model = FISM(FISMConfig(num_dim=6, num_neg=2, batch_size=16,
+                            dense_mode=False), device="cuda")
+    assert model.cfg.scatter_mode == "pallas"
+    state = model.reset(data, seed=1)
+    counts = (P.scatter_matmul.launches, P.adagrad_update.launches)
+    model.train_one_iteration(state, 5)
+    steps = len(state.aux["sparse_batches"])
+    assert P.scatter_matmul.launches == counts[0] + 2 * steps  # Q+bi, P
+    assert P.adagrad_update.launches == counts[1] + 4 * steps
+
+    warp = WARP(MFConfig(num_dim=6, batch_size=64, gather_mode="mxu",
+                         scatter_mode="pallas", loss="HINGE", beta=0.0,
+                         lambda_=0.1), device="cuda")
+    ws = warp.reset(data, seed=1)
+    counts = (P.gather_rows_mxu.launches, P.scatter_matmul.launches,
+              P.warp_violator_select.launches)
+    warp.train_one_iteration(ws, 5)
+    n = -(-len(data) // 64)
+    assert P.gather_rows_mxu.launches == counts[0] + 2 * n
+    assert P.scatter_matmul.launches == counts[1] + 2 * n
+    assert P.warp_violator_select.launches == counts[2] + n

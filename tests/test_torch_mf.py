@@ -2,7 +2,7 @@
 update math, the dense path's step and a whole epoch with the very draws
 cdae_tpu makes injected, scoring and losses on carried parameters, and
 WARP end to end (Solver, resume, the guard, TOPN, the CLI). Also: the
-routes not ported yet raise.
+routes not ported yet raise, and the B8/B9 routes and FISM run.
 
 Draws: cdae_tpu's step splits its key into (k1, k2); the count uniforms
 are jax.random.uniform(k1), the kernel route's seed is key_seed(k2) and the
@@ -447,14 +447,18 @@ def test_unported_routes_raise(splits):
         train(warp_pool=64)
     with pytest.raises(NotImplementedError, match="scan.*A8"):
         train(dense_mode=False)
-    with pytest.raises(NotImplementedError, match="B9"):
-        train(gather_mode="mxu")
-    with pytest.raises(NotImplementedError, match="B8"):
-        train(scatter_mode="pallas")
+    # B9 (gather_mode="mxu") and B8 (the pallas scatter modes) now run
+    train(gather_mode="mxu")
+    train(scatter_mode="pallas")
+    train(gather_mode="mxu", scatter_mode="pallas_bf16")
     for name, entry in (("BPR", "A8"), ("pmf", "A8"), ("IMF", "A8"),
-                        ("FISM", "A9")):
+                        ("ALS", "A9")):
         with pytest.raises(NotImplementedError, match=entry):
             tmodels.create_model(name, device="cpu")
+    from cdae_tpu_torch.models.fism import FISM, FISMPair
+    assert isinstance(tmodels.create_model("FISM", device="cpu"), FISM)
+    assert isinstance(tmodels.create_model("fismpair", device="cpu"),
+                      FISMPair)
     with pytest.raises(ValueError, match="unknown"):
         tmodels.create_model("NOPE", device="cpu")
     assert isinstance(tmodels.create_model("warp", device="cpu"), tmf.WARP)

@@ -1,0 +1,276 @@
+"""The port's row aggregation (B8 ``scatter_matmul``), row gather (B9
+``gather_rows_mxu``) and exact complement sampler (``sample_unrated``)
+against cdae_tpu's on the same numpy inputs, on the CPU: cdae_tpu's Pallas
+kernels run in interpret mode, the port's wrappers take their plain
+versions (a CPU tensor). Then WARP's step with ``gather_mode="mxu"`` and
+``scatter_mode="pallas"`` against the native step and cdae_tpu's.
+
+Tolerances: B8 to 1e-6 (f32 sums in another order; the bf16 modes round
+the same contributions to bf16 on both sides), B9 and the sampler exactly,
+the WARP step to 1e-5 of each table's scale.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import cdae_tpu.models.mf as jmf
+import cdae_tpu_torch.models.mf as tmf
+from cdae_tpu.data.dataset import Interactions as JInteractions
+from cdae_tpu.data.dataset import movielens_line_parser as jparser
+from cdae_tpu.ops import pallas_kernels as JP
+from cdae_tpu.ops import sampling as jsampling
+from cdae_tpu.ops import scatter as jscatter
+from cdae_tpu_torch.data.dataset import Interactions as TInteractions
+from cdae_tpu_torch.data.dataset import movielens_line_parser as tparser
+from cdae_tpu_torch.ops import pallas_kernels as TP
+from cdae_tpu_torch.ops import sampling as tsampling
+from cdae_tpu_torch.ops import scatter as tscatter
+from cdae_tpu_torch.utils import checkpoint as tckpt
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def rng_np():
+    return np.random.default_rng(17)
+
+
+def _ids(rng, P, N):
+    """Ids in [0, N) with the sentinel N, ids past it and negative ones."""
+    idx = rng.integers(0, N, P).astype(np.int32)
+    idx[: P // 10] = N
+    idx[P // 10: P // 8] = N + 5
+    idx[P // 8: P // 6] = -1
+    return rng.permutation(idx)
+
+
+# ------------------------------------------------------------------- B8 ----
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("P,N,width", [(700, 37, 11), (300, 50, None),
+                                       (1500, 300, 10), (5, 3, 1)])
+def test_scatter_matmul_plain_matches_cdae_tpu(rng_np, bf16, P, N, width):
+    """cdae_tpu's interpret-mode kernel with vals_dtype f32, or its bf16
+    default, against the port's plain version, 1-D values too."""
+    shape = (P,) if width is None else (P, width)
+    vals = rng_np.standard_normal(shape).astype(np.float32)
+    idx = _ids(rng_np, P, N)
+    want = JP.scatter_matmul(
+        jnp.asarray(idx), jnp.asarray(vals), N,
+        vals_dtype=jnp.bfloat16 if bf16 else jnp.float32)
+    before = TP.scatter_matmul.launches
+    got = TP.scatter_matmul(torch.from_numpy(idx).long(),
+                            torch.from_numpy(vals), N, bf16=bf16)
+    assert TP.scatter_matmul.launches == before  # CPU: the plain version
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_scatter_matmul_bf16_rounds_each_contribution(rng_np):
+    """bf16 rounds the values, never the sum: the result equals the f32
+    sum of the bf16-rounded values."""
+    vals = torch.from_numpy(rng_np.standard_normal((400, 6))
+                            .astype(np.float32))
+    idx = torch.from_numpy(_ids(rng_np, 400, 20)).long()
+    rounded = vals.to(torch.bfloat16).to(torch.float32)
+    assert torch.equal(TP.scatter_matmul(idx, vals, 20, bf16=True),
+                       TP.scatter_matmul(idx, rounded, 20))
+    assert not torch.equal(TP.scatter_matmul(idx, vals, 20, bf16=True),
+                           TP.scatter_matmul(idx, vals, 20))
+
+
+def test_scatter_matmul_edge_shapes():
+    empty = TP.scatter_matmul(torch.zeros(0, dtype=torch.long),
+                              torch.zeros((0, 4)), 6)
+    assert tuple(empty.shape) == (6, 4) and not empty.any()
+    dropped = TP.scatter_matmul(torch.tensor([6, -1, 99]),
+                                torch.ones(3), 6)
+    assert tuple(dropped.shape) == (6,) and not dropped.any()
+    assert tuple(TP.scatter_matmul(torch.tensor([0]), torch.ones((1, 3)),
+                                   0).shape) == (0, 3)
+
+
+@pytest.mark.parametrize("mode", ["pallas", "pallas_bf16"])
+@pytest.mark.parametrize("width", [None, 11])
+def test_scatter_add_rows_pallas_modes_match_cdae_tpu(rng_np, mode, width):
+    N, Pn = 41, 900
+    shape = (Pn,) if width is None else (Pn, width)
+    vals = rng_np.standard_normal(shape).astype(np.float32)
+    base = rng_np.standard_normal((N,) + shape[1:]).astype(np.float32)
+    idx = _ids(rng_np, Pn, N)
+    want = jscatter.scatter_add_rows(jnp.asarray(base), jnp.asarray(idx),
+                                     jnp.asarray(vals), mode=mode)
+    got = tscatter.scatter_add_rows(torch.from_numpy(base),
+                                    torch.from_numpy(idx),
+                                    torch.from_numpy(vals), mode=mode)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+# ------------------------------------------------------------------- B9 ----
+
+@pytest.mark.parametrize("N,C,P", [(777, 13, 301), (50, 11, 400),
+                                   (9, 4, 20), (3706, 10, 64)])
+def test_gather_rows_mxu_plain_matches_cdae_tpu(rng_np, N, C, P):
+    """Exact, with the rows of ids out of range (past N, negative) zero
+    (tests/test_pallas.py's check, on more shapes)."""
+    table = rng_np.standard_normal((N, C)).astype(np.float32)
+    idx = _ids(rng_np, P, N)
+    want = np.asarray(JP.gather_rows_mxu(jnp.asarray(table), jnp.asarray(idx),
+                                         block_p=128, block_q=128))
+    before = TP.gather_rows_mxu.launches
+    got = TP.gather_rows_mxu(torch.from_numpy(table),
+                             torch.from_numpy(idx).long()).numpy()
+    assert TP.gather_rows_mxu.launches == before
+    np.testing.assert_array_equal(got, want)
+    out = (idx < 0) | (idx >= N)
+    assert out.any() and not got[out].any()
+    np.testing.assert_array_equal(got[~out], table[idx[~out]])
+
+
+def test_gather_rows_mxu_empty_table_gives_zero_rows():
+    got = TP.gather_rows_mxu(torch.zeros((0, 5)), torch.tensor([0, 3]))
+    assert tuple(got.shape) == (2, 5) and not got.any()
+
+
+# -------------------------------------------------------- sample_unrated ----
+
+def _rated_rows(rng, B, I, max_len, full_rows=()):
+    L = max_len
+    items = np.full((B, L), I, np.int32)
+    lengths = np.zeros(B, np.int32)
+    for b in range(B):
+        n = I if b in full_rows else int(rng.integers(0, min(L, I - 1) + 1))
+        items[b, :n] = np.sort(rng.choice(I, n, replace=False))
+        lengths[b] = n
+    return items, lengths
+
+
+@pytest.mark.parametrize("S", [5, 32, 100, 512, 700])
+def test_sample_unrated_matches_cdae_tpu(rng_np, S):
+    """The three branches of cdae_tpu's count (S <= 32, <= 512, above) with
+    the draws u = jax.random.randint(key, ...) it makes: equal ids, full
+    rows at the sentinel I."""
+    B, I = 9, 60
+    items, lengths = _rated_rows(rng_np, B, I, I, full_rows=(3,))
+    key = jax.random.PRNGKey(S)
+    free = jnp.maximum(I - jnp.asarray(lengths), 1)
+    u = jax.random.randint(key, (B, S), minval=0, maxval=free[:, None],
+                           dtype=jnp.int32)
+    want = np.asarray(jsampling.sample_unrated(
+        key, jnp.asarray(items), jnp.asarray(lengths), I, S))
+    got = tsampling.sample_unrated(
+        0, torch.from_numpy(items), torch.from_numpy(lengths), I, S,
+        u=torch.from_numpy(np.array(u))).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[3] == I).all()
+    for b in range(B):
+        if b != 3:
+            assert not np.isin(got[b], items[b, :lengths[b]]).any()
+            assert ((got[b] >= 0) & (got[b] < I)).all()
+
+
+@pytest.mark.parametrize("hw", [False, True])
+def test_sample_unrated_own_draws(rng_np, hw):
+    """The port's draws (a generator seeded by the step seed, or B1's hash
+    stream): unrated ids only, uniform over each row's complement,
+    reproducible from the seed."""
+    B, I, S = 6, 40, 4000
+    items, lengths = _rated_rows(rng_np, B, I, 30)
+    args = (torch.from_numpy(items), torch.from_numpy(lengths), I, S)
+    got = tsampling.sample_unrated(123, *args, hw=hw)
+    assert got.dtype == torch.int64
+    assert torch.equal(got, tsampling.sample_unrated(123, *args, hw=hw))
+    assert not torch.equal(got, tsampling.sample_unrated(124, *args, hw=hw))
+    for b in range(B):
+        rated = set(items[b, :lengths[b]].tolist())
+        counts = np.bincount(got[b].numpy(), minlength=I)
+        assert not any(counts[r] for r in rated)
+        free = I - lengths[b]
+        expected = S / free
+        chi2 = sum((counts[i] - expected) ** 2 / expected
+                   for i in range(I) if i not in rated)
+        assert chi2 < free + 6 * np.sqrt(2 * free)  # dof free - 1
+
+
+# --------------------------------------------------- WARP with B8 and B9 ----
+
+SEED = 20141119
+B, NN = 32, 3
+WARP_KW = dict(num_dim=8, batch_size=B, num_neg=NN, num_tries=16,
+               loss="HINGE", beta=0.0, lambda_=0.1, learn_rate=0.05)
+
+
+@pytest.fixture(scope="module")
+def warp_pair(movielens_path):
+    j = JInteractions.from_text(movielens_path, jparser)
+    t = TInteractions.from_text(movielens_path, tparser)
+    return j.split_by_user(0.2, seed=SEED)[0], t.split_by_user(0.2,
+                                                               seed=SEED)[0]
+
+
+def _warp(warp_pair, **kw):
+    jtrain, ttrain = warp_pair
+    cfg = {**WARP_KW, **kw}
+    jm = jmf.WARP(jmf.MFConfig(**cfg))
+    tm = tmf.WARP(tmf.MFConfig(**cfg), device="cpu")
+    js, ts = jm.reset(jtrain, seed=0), tm.reset(ttrain, seed=0)
+    rng = np.random.default_rng(3)
+    p = {k: np.array(v) for k, v in js.params.items()}
+    for k in ("uv", "iv", "ub", "ib"):
+        p[k] = (rng.standard_normal(p[k].shape) * 0.3).astype(np.float32)
+        p[k + "_ag"] = rng.uniform(0.5, 1.5, p[k].shape).astype(np.float32)
+    js.params = {k: jnp.asarray(v) for k, v in p.items()}
+    ts.params = tckpt.params_from_numpy(p, "cpu")
+    return jm, js, tm, ts
+
+
+@pytest.mark.parametrize("scatter_mode", ["pallas", "pallas_bf16"])
+def test_warp_step_with_b8_b9_matches_native_and_cdae_tpu(warp_pair,
+                                                          scatter_mode):
+    """One kernel-route WARP step with gather_mode="mxu" and the B8
+    scatter: equal to cdae_tpu's step with the same modes and draws, and
+    for "pallas" to the port's native step (B9 is exact, B8's plain sum
+    runs in index_add's order; "pallas_bf16" rounds the contributions)."""
+    modes = dict(gather_mode="mxu", scatter_mode=scatter_mode)
+    jm, js, tm, ts = _warp(warp_pair, use_pallas=True, **modes)
+    _, _, nm, ns = _warp(warp_pair, use_pallas=True)
+    rng = np.random.default_rng(5)
+    users, items, _ = js.aux["coo"]
+    sel = rng.integers(0, len(users), B)
+    w = np.ones(B, np.float32)
+    w[-3:] = 0.0
+    u, i = users[sel], items[sel]
+    mask = np.asarray(jm._epoch_extras(js)[0])[u]
+    lengths = js.padded.lengths[u]
+    key = jax.random.PRNGKey(9)
+    k1, k2 = jax.random.split(key)
+    draws = dict(sel_seed=int(jsampling.key_seed(k2)),
+                 u1=torch.from_numpy(np.array(jax.random.uniform(
+                     k1, (B, NN), minval=1e-7, maxval=1.0))))
+    want = jmf.WARP._dense_path(
+        js.params, *map(jnp.asarray, (u, i, w, lengths)), key,
+        jnp.asarray(mask), cfg=jm.cfg, loss=jm.loss)
+    targs = (torch.from_numpy(u).long(), torch.from_numpy(i).long(),
+             torch.from_numpy(w), torch.from_numpy(lengths), (0, 0))
+    b9 = TP.gather_rows_mxu.launches
+    got = tmf.WARP._dense_path(ts.params, *targs,
+                               tm._epoch_extras(ts)[0][targs[0]],
+                               cfg=tm.cfg, loss=tm.loss, **draws)
+    native = tmf.WARP._dense_path(ns.params, *targs,
+                                  nm._epoch_extras(ns)[0][targs[0]],
+                                  cfg=nm.cfg, loss=nm.loss, **draws)
+    assert TP.gather_rows_mxu.launches == b9  # CPU: plain versions
+    for k in want:
+        want_k = np.asarray(want[k])
+        atol = 1e-5 * max(1.0, float(np.abs(want_k).max()))
+        np.testing.assert_allclose(got[k].numpy(), want_k, rtol=1e-5,
+                                   atol=atol, err_msg=k)
+        if scatter_mode == "pallas":
+            np.testing.assert_allclose(got[k].numpy(), native[k].numpy(),
+                                       rtol=1e-6, atol=1e-6, err_msg=k)

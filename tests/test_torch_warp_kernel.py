@@ -143,12 +143,17 @@ def test_scatter_add_rows_matches_cdae_tpu(rng_np, mode, width):
 
 
 def test_scatter_add_rows_pallas_modes_raise_naming_b8():
-    args = (torch.zeros(4), torch.zeros(3, dtype=torch.long), torch.ones(3))
-    for mode in ("pallas", "pallas_bf16"):
-        with pytest.raises(NotImplementedError, match="B8"):
-            tscatter.scatter_add_rows(*args, mode=mode)
+    """The pallas modes are kernel B8 (its plain version on the CPU): they
+    no longer raise, and sum as index_add does; an unknown mode raises."""
+    base = torch.arange(4.0)
+    idx = torch.tensor([0, 3, 3, 4, -1])
+    vals = torch.tensor([1.0, 2.0, 0.5, 7.0, 9.0])
+    want = torch.tensor([1.0, 1.0, 2.0, 5.5])
+    for mode in ("pallas", "pallas_bf16", "scatter"):
+        assert torch.equal(tscatter.scatter_add_rows(base, idx, vals,
+                                                     mode=mode), want)
     with pytest.raises(ValueError, match="unknown"):
-        tscatter.scatter_add_rows(*args, mode="onehot")
+        tscatter.scatter_add_rows(base, idx, vals, mode="onehot")
 
 
 # ------------------------------------------------------------ hw_randint ----
