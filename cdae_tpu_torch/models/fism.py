@@ -57,7 +57,7 @@ from cdae_tpu_torch.ops.losses import Loss
 from cdae_tpu_torch.ops.pallas_kernels import hw_uniform
 from cdae_tpu_torch.ops.penalties import Penalty
 from cdae_tpu_torch.ops.sampling import sample_unrated
-from cdae_tpu_torch.ops.scatter import scatter_add_rows
+from cdae_tpu_torch.ops.scatter import row_plan, scatter_add_rows
 from cdae_tpu_torch.solver.optimizer import ADAGRAD_INIT, dense_adagrad_step
 from cdae_tpu_torch.utils.random import step_seed
 
@@ -362,8 +362,10 @@ def _fism_step(params, uids, items, mask, lengths, weight, lr: float,
     grads = {}
     sm = cfg.scatter_mode
     # one flat index vector over positives and negatives: Q's and bi's
-    # gradients ride ONE row aggregation, bi as an extra value column
+    # gradients ride ONE row aggregation, bi as an extra value column; P's
+    # ids (the positives) are its prefix, so one plan serves both sums
     all_idx = torch.cat([items.reshape(-1), neg.reshape(-1)])
+    plan = row_plan(all_idx, I, sm)
     if cfg.using_bias_term:
         grads["bu"] = torch.zeros_like(params["bu"]).index_add_(
             0, uids, torch.sum(g_pos, 1) + torch.sum(g_neg, 1)
@@ -387,12 +389,12 @@ def _fism_step(params, uids, items, mask, lengths, weight, lr: float,
                 torch.zeros((I, D + 1), dtype=q_vals.dtype,
                             device=q_vals.device),
                 all_idx, torch.cat([q_vals, bi_vals()[:, None]], dim=1),
-                mode=sm)
+                mode=sm, plan=plan)
             grads["Q"] = agg[:, :D]
             grads["bi"] = agg[:, D]
         else:
             grads["Q"] = scatter_add_rows(torch.zeros_like(params["Q"]),
-                                          all_idx, q_vals, mode=sm)
+                                          all_idx, q_vals, mode=sm, plan=plan)
         # P gradients: every rated j gets the sum over the row's instances
         # of g * q * scale, minus the self term for positive j (ref
         # fism.hpp:136-144 skips jid == iid)
@@ -403,10 +405,10 @@ def _fism_step(params, uids, items, mask, lengths, weight, lr: float,
               + lam * P_rows) * mask_f[..., None]
         grads["P"] = scatter_add_rows(torch.zeros_like(params["P"]),
                                       items.reshape(-1), gp.reshape(-1, D),
-                                      mode=sm)
+                                      mode=sm, plan=plan)
     elif cfg.using_bias_term:
         grads["bi"] = scatter_add_rows(torch.zeros_like(params["bi"]),
-                                       all_idx, bi_vals(), mode=sm)
+                                       all_idx, bi_vals(), mode=sm, plan=plan)
 
     _fism_adagrad(params, grads, lr, cfg)
     if cfg.using_factor_term:
@@ -520,6 +522,7 @@ def _fism_pair_step(params, uids, items, mask, lengths, weight, lr: float,
 
     sm = cfg.scatter_mode
     all_idx = torch.cat([items.reshape(-1), neg.reshape(-1)])
+    plan = row_plan(all_idx, I, sm)  # bi's, Q's and (its prefix) P's sums
     grads = {}
     if cfg.using_bias_term:
         grads["bi"] = scatter_add_rows(
@@ -529,7 +532,7 @@ def _fism_pair_step(params, uids, items, mask, lengths, weight, lr: float,
                 .reshape(-1),
                 (-g + lam * params["bi"][neg_c] * mask_f[:, None, :])
                 .reshape(-1),
-            ]), mode=sm)
+            ]), mode=sm, plan=plan)
 
     # Q: qi_grad = g * x~ * s + lam q_i ; qj_grad = -g * x~ * s + lam q_j
     gq_i = ((g_sum * s_rated[:, None])[..., None] * xt
@@ -538,7 +541,8 @@ def _fism_pair_step(params, uids, items, mask, lengths, weight, lr: float,
             + lam * Q_neg) * mask_f[:, None, :, None]
     grads["Q"] = scatter_add_rows(
         torch.zeros_like(params["Q"]), all_idx,
-        torch.cat([gq_i.reshape(-1, D), gq_j.reshape(-1, D)]), mode=sm)
+        torch.cat([gq_i.reshape(-1, D), gq_j.reshape(-1, D)]), mode=sm,
+        plan=plan)
 
     # P: each rated k != i gets g * (q_i - q_j) * s + lam p_k per pair
     dq = (torch.einsum("bnl,bld->bd", g, Q_pos)
@@ -549,7 +553,7 @@ def _fism_pair_step(params, uids, items, mask, lengths, weight, lr: float,
           + lam * P_rows) * mask_f[..., None]
     grads["P"] = scatter_add_rows(torch.zeros_like(params["P"]),
                                   items.reshape(-1), gp.reshape(-1, D),
-                                  mode=sm)
+                                  mode=sm, plan=plan)
 
     _fism_adagrad(params, grads, lr, cfg)
     _refresh_x_rows(params, uids, items, mask_f, w)

@@ -62,7 +62,7 @@ from cdae_tpu_torch.ops.pallas_kernels import (
 )
 from cdae_tpu_torch.ops.penalties import Penalty
 from cdae_tpu_torch.ops.sampling import hw_randint
-from cdae_tpu_torch.ops.scatter import scatter_add_rows
+from cdae_tpu_torch.ops.scatter import row_plan, scatter_add_rows
 from cdae_tpu_torch.solver.optimizer import (
     ADAGRAD_INIT,
     dense_adagrad_step,
@@ -220,13 +220,16 @@ def _pairwise_grads(params, u, i, j, w, cfg: MFConfig, loss: Loss,
     I = params["iv"].shape[0]
     C = pos_vals.shape[-1]
     sm = cfg.scatter_mode
+    item_ids = torch.cat([i, j.reshape(-1)])
+    # item and user sums have different ids: a plan each (pallas modes)
     acc = scatter_add_rows(
         torch.zeros((I, C), dtype=pos_vals.dtype, device=pos_vals.device),
-        torch.cat([i, j.reshape(-1)]),
-        torch.cat([pos_vals, neg_vals.reshape(-1, C)]), mode=sm)
+        item_ids, torch.cat([pos_vals, neg_vals.reshape(-1, C)]), mode=sm,
+        plan=row_plan(item_ids, I, sm))
     grads = {
         "uv": scatter_add_rows(torch.zeros_like(params["uv"]), u, d_uv_rows,
-                               mode=sm),
+                               mode=sm,
+                               plan=row_plan(u, params["uv"].shape[0], sm)),
         "iv": acc[:, :D].contiguous(),
     }
     if with_bias:

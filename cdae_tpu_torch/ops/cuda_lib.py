@@ -38,7 +38,7 @@ _F = ctypes.c_float
 # C signatures of the kernels' entry points (csrc/*.cu); each returns the
 # cudaError_t of its launch
 _SIGNATURES = {
-    "cdae_decode_scores": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "cdae_decode_scores": (_P, _P, _P, _P) + (_I,) * 4 + (_P,),
     "cdae_fused_topk_dense": (_P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _P),
     "cdae_fused_topk_csr": (_P, _P, _P, _P, _I, _P, _P, _P, _P,
@@ -47,7 +47,8 @@ _SIGNATURES = {
     "cdae_adagrad_update": (_P, _P, _P, _I, _F, _F, _I, _P),
     "cdae_fused_step": (_P,) * 14 + (_I,) * 4 + (_F,) * 5 + (_I,) * 5 + (_P,),
     "cdae_warp_select": (_I,) + (_P,) * 10 + (_I,) * 7 + (_P,),
-    "cdae_scatter_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "cdae_scatter_plan": (_P, _I, _I, _P, _P, _P, _P),
+    "cdae_scatter_reduce": (_P, _P, _P, _P) + (_I,) * 5 + (_P,),
     "cdae_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 

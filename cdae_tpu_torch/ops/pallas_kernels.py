@@ -18,9 +18,13 @@ Port of cdae_tpu/ops/pallas_kernels.py (every Pallas kernel):
   warp_violator_select   WARP's per-row count of unrated csrc/warp_select.cu
                          items scoring above a threshold
                          + nn uniform picks among them
+  scatter_plan           the ids sorted into per-row     csrc/scatter_rows.cu
+                         segments (a stable radix sort),
+                         shared by a step's sums
   scatter_matmul         out[n] = sum of vals[p] with    csrc/scatter_rows.cu
-                         idx[p] == n, as sorted segments
-                         (a fixed order, no atomics)
+                         idx[p] == n over a plan's
+                         segments (a fixed order, no
+                         atomics)
   gather_rows_mxu        table[idx], zero rows for ids   csrc/gather_rows.cu
                          out of range
 
@@ -36,7 +40,7 @@ counts its kernel launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -79,7 +83,13 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of ``device``'s current stream, read as PyTorch's own
+    kernel launchers read it: without building a ``torch.cuda.Stream``
+    object on every launch, which costs more host time than the small
+    kernels take on the card."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,7 +108,8 @@ def decode_scores_plain(z: torch.Tensor, W: torch.Tensor,
 def decode_scores(z: torch.Tensor, W: torch.Tensor,
                   b_prime: torch.Tensor) -> torch.Tensor:
     """(B, I) decoder scores z @ W^T + b' for z (B, D), W (I, D), b' (I,),
-    all float32."""
+    all float32. The kernel multiplies on the tensor cores in 3xTF32, which
+    keeps f32-level accuracy (not bit-equal to the library GEMM)."""
     if not _on_cuda(z):
         return decode_scores_plain(z, W, b_prime)
     from cdae_tpu_torch.ops import cuda_lib
@@ -108,12 +119,19 @@ def decode_scores(z: torch.Tensor, W: torch.Tensor,
     _require(z, "z", torch.float32, (B, D), z.device)
     _require(W, "W", torch.float32, (I, D), z.device)
     _require(b_prime, "b_prime", torch.float32, (I,), z.device)
+    if B > 65535 * 128:
+        raise ValueError(f"B={B}: the kernel takes B <= {65535 * 128}")
     out = torch.empty((B, I), dtype=torch.float32, device=z.device)
     if B == 0 or I == 0:
         return out
+    # the widest copy of z and W rows (16, 8 or 4 bytes) that D and both
+    # pointers allow
+    zp, wp = z.data_ptr(), W.data_ptr()
+    vec = next(v for v in (4, 2, 1)
+               if D % v == 0 and zp % (4 * v) == 0 and wp % (4 * v) == 0)
     rc = cuda_lib.lib().cdae_decode_scores(
-        z.data_ptr(), W.data_ptr(), b_prime.data_ptr(), out.data_ptr(),
-        B, I, D, _stream(z.device),
+        zp, wp, b_prime.data_ptr(), out.data_ptr(), B, I, D, vec,
+        _stream(z.device),
     )
     cuda_lib.check(rc, "decode_scores")
     decode_scores.launches += 1
@@ -611,35 +629,116 @@ warp_violator_select.launches = 0
 
 # ------------------------------------------------------ row aggregation ----
 
-def scatter_matmul_plain(idx: torch.Tensor, vals: torch.Tensor,
-                         num_rows: int, *, bf16: bool = False
-                         ) -> torch.Tensor:
-    """Plain version of ``scatter_matmul``: one ``index_add_`` of the
-    in-range rows into f32 zeros (on the card it sums duplicate rows with
-    atomics, in no fixed order)."""
+class ScatterPlan(NamedTuple):
+    """An id vector sorted into per-row segments, for ``scatter_matmul``:
+    ``order`` (P,) int32 holds the positions stably sorted by id (ids
+    outside [0, N) as the sentinel N, last); segment n is
+    ``order[offsets[n]:offsets[n + 1]]``, ``offsets`` (N + 1,) int32."""
+
+    offsets: torch.Tensor
+    order: torch.Tensor
+
+
+_PLAN_TILE = 1024  # csrc/scatter_rows.cu kTile
+
+
+def _check_rows(num_rows: int) -> None:
+    if not 0 <= num_rows < 2**31 - 1:
+        raise ValueError(f"num_rows={num_rows}: the kernels take "
+                         "0 <= num_rows < 2**31 - 1")
+
+
+def scatter_plan_plain(idx: torch.Tensor, num_rows: int) -> ScatterPlan:
+    """Plain version of ``scatter_plan``: the library's stable sort of the
+    keys and a search for each row's first position."""
     idx = idx.reshape(-1).to(torch.int64)
+    keys = torch.where((idx >= 0) & (idx < num_rows), idx, num_rows)
+    sorted_keys, order = torch.sort(keys, stable=True)
+    starts = torch.arange(num_rows + 1, dtype=torch.int64, device=idx.device)
+    offsets = torch.searchsorted(sorted_keys, starts)
+    return ScatterPlan(offsets.to(torch.int32), order.to(torch.int32))
+
+
+def scatter_plan(idx: torch.Tensor, num_rows: int) -> ScatterPlan:
+    """The segments of ``idx`` (P,) int64 over ``num_rows`` rows: build it
+    once per id vector and pass it to every ``scatter_matmul`` over that
+    vector or a prefix of it. On a CUDA tensor one call of the kernels
+    (csrc/scatter_rows.cu: a stable radix sort over only the bits
+    ``num_rows`` needs, then the segment starts); integer counts, so the
+    same plan on every run."""
+    _check_rows(num_rows)
+    if not _on_cuda(idx):
+        return scatter_plan_plain(idx, num_rows)
+    from cdae_tpu_torch.ops import cuda_lib
+
+    dev = idx.device
+    _require(idx, "idx", torch.int64, (None,), dev)
+    P = idx.shape[0]
+    if P >= 2**30:
+        raise ValueError(f"P={P}: the plan takes fewer than 2**30 ids")
+    # one allocation: order, offsets, then the kernels' scratch (keys,
+    # positions, digit counts, the tiles' look-back counts)
+    buf = torch.empty((P + num_rows + 1 + 3 * P + 1056
+                       + 1024 * _cdiv(P, _PLAN_TILE),),
+                      dtype=torch.int32, device=dev)
+    order, offsets = buf[:P], buf[P:P + num_rows + 1]
+    rc = cuda_lib.lib().cdae_scatter_plan(
+        idx.data_ptr(), P, num_rows, order.data_ptr(), offsets.data_ptr(),
+        buf[P + num_rows + 1:].data_ptr(), _stream(dev),
+    )
+    cuda_lib.check(rc, "scatter_plan")
+    scatter_plan.launches += 1
+    return ScatterPlan(offsets, order)
+
+
+scatter_plan.launches = 0
+
+
+def scatter_matmul_plain(idx: torch.Tensor, vals: torch.Tensor,
+                         num_rows: int, *, bf16: bool = False,
+                         plan: Optional[ScatterPlan] = None) -> torch.Tensor:
+    """Plain version of ``scatter_matmul``: one ``index_add_`` of the
+    in-range rows into f32 zeros, in ascending p (on the card it sums
+    duplicate rows with atomics, in no fixed order). With a ``plan`` the
+    rows and positions come from its segments, those below len(vals)."""
     v = vals.to(torch.float32)
     if bf16:
         v = v.to(torch.bfloat16).to(torch.float32)
-    valid = (idx >= 0) & (idx < num_rows)
-    keep = valid.reshape((-1,) + (1,) * (v.dim() - 1))
     out = torch.zeros((num_rows,) + tuple(v.shape[1:]), dtype=torch.float32,
                       device=v.device)
+    if plan is not None:
+        offsets = plan.offsets.to(torch.int64)
+        rows = torch.repeat_interleave(
+            torch.arange(num_rows, device=v.device), offsets.diff())
+        pos = plan.order[:rows.shape[0]].to(torch.int64)
+        keep = pos < v.shape[0]
+        return out.index_add_(0, rows[keep], v[pos[keep]])
+    idx = idx.reshape(-1).to(torch.int64)
+    valid = (idx >= 0) & (idx < num_rows)
+    keep = valid.reshape((-1,) + (1,) * (v.dim() - 1))
     return out.index_add_(0, torch.where(valid, idx, 0),
                           torch.where(keep, v, 0.0))
 
 
 def scatter_matmul(idx: torch.Tensor, vals: torch.Tensor, num_rows: int, *,
-                   bf16: bool = False) -> torch.Tensor:
+                   bf16: bool = False, plan: Optional[ScatterPlan] = None
+                   ) -> torch.Tensor:
     """Row aggregation ``out[n] = sum_{p : idx[p] == n} vals[p]`` for n in
     [0, num_rows): ``idx`` (P,) int64, ``vals`` (P, C) or (P,) float32;
     returns (num_rows, C) or (num_rows,) float32. Ids outside [0, num_rows)
     contribute nothing. ``bf16`` rounds each contribution to bf16 before
-    the f32 sum (cdae_tpu's default bf16 operands). The kernel sums each
-    row's contributions in ascending p (a stable sort of the ids, then
-    sorted segments), so its result is the same bits on every run."""
+    the f32 sum (cdae_tpu's default bf16 operands).
+
+    ``plan``: a ``scatter_plan`` of an id vector whose first P entries are
+    ``idx`` (``idx`` itself is then not read); the kernel skips the plan's
+    positions >= P (its ``limit``), so one plan serves a step's
+    aggregations over one id vector and its prefixes. Without one, a plan
+    of ``idx`` is built first. The kernel's sums run in a fixed order, so
+    its result is the same bits on every run, and over a prefix the same
+    with a shared plan as with the prefix's own."""
     if not _on_cuda(vals):
-        return scatter_matmul_plain(idx, vals, num_rows, bf16=bf16)
+        return scatter_matmul_plain(idx, vals, num_rows, bf16=bf16,
+                                    plan=plan)
     from cdae_tpu_torch.ops import cuda_lib
 
     dev = vals.device
@@ -649,19 +748,23 @@ def scatter_matmul(idx: torch.Tensor, vals: torch.Tensor, num_rows: int, *,
     P = vals.shape[0]
     C = 1 if vals.dim() == 1 else vals.shape[1]
     _require(vals, "vals", torch.float32, tuple(vals.shape), dev)
-    _require(idx, "idx", torch.int64, (P,), dev)
-    if not 0 <= num_rows < 2**31:
-        raise ValueError(f"num_rows={num_rows}: the kernel takes "
-                         "0 <= num_rows < 2**31")
+    _check_rows(num_rows)
     out = torch.empty((num_rows,) + tuple(vals.shape[1:]),
                       dtype=torch.float32, device=dev)
     if num_rows == 0:
         return out
-    # index preparation: the ids in ascending order, ties in ascending p
-    sorted_ids, order = torch.sort(idx, stable=True)
-    rc = cuda_lib.lib().cdae_scatter_rows(
-        sorted_ids.data_ptr(), order.data_ptr(), vals.data_ptr(),
-        out.data_ptr(), P, num_rows, C, int(bool(bf16)), _stream(dev),
+    if plan is None:
+        _require(idx, "idx", torch.int64, (P,), dev)
+        plan = scatter_plan(idx, num_rows)
+    _require(plan.offsets, "plan.offsets", torch.int32, (num_rows + 1,), dev)
+    _require(plan.order, "plan.order", torch.int32, (None,), dev)
+    if plan.order.shape[0] < P:
+        raise ValueError(f"the plan covers {plan.order.shape[0]} positions, "
+                         f"vals has {P} rows")
+    rc = cuda_lib.lib().cdae_scatter_reduce(
+        plan.offsets.data_ptr(), plan.order.data_ptr(), vals.data_ptr(),
+        out.data_ptr(), num_rows, C, plan.order.shape[0], P,
+        int(bool(bf16)), _stream(dev),
     )
     cuda_lib.check(rc, "scatter_matmul")
     scatter_matmul.launches += 1

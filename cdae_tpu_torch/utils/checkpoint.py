@@ -42,9 +42,12 @@ def params_from_numpy(arrays: Dict[str, np.ndarray],
     """cdae_tpu parameter arrays (W, b, b_prime, Wu, V, Uu and their
     ``_ag`` AdaGrad accumulators, or any other model's flat dict) ->
     contiguous tensors on ``device`` with the same names, shapes and
-    dtypes. Both packages keep tables as (rows, D), row-major."""
+    dtypes. Both packages keep tables as (rows, D), row-major. Each
+    tensor owns a copy: the models update their tables in place, which
+    must never write through into the caller's arrays (on the CPU,
+    ``torch.from_numpy`` would share their memory)."""
     return {
-        name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        name: torch.tensor(np.ascontiguousarray(a), device=device)
         for name, a in arrays.items()
     }
 

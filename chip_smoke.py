@@ -5,7 +5,9 @@ Phases, each printed as one JSON line:
   build   -- compile the CUDA kernels from cdae_tpu_torch/csrc (nvcc, one
              process per source, in parallel)
   kernel  -- each kernel against its plain PyTorch version on the card, at
-             the shapes its path gives it; error and median times
+             the shapes its path gives it; error and median times (B3,
+             like B8 below, also its device time beside its library
+             call's: device_ms)
   serving path (counts from 0 before slice, read after dense_1m):
     slice   -- ML-1M-scale CDAE serving at D=50 through the CLI --task test
                (dense_R encode + decode kernel + TOPN), checked against the
@@ -35,10 +37,14 @@ Phases, each printed as one JSON line:
   train_warp_xla -- the same 10 epochs with use_pallas=False (the cumsum
              route): R@10 within 0.03 of the kernel run
   train_speed_warp -- warm WARP training users/s, both routes
-  kernel_scatter -- the row aggregation (B8) against its plain version at
-             a FISM sparse step's shapes (the largest batch of the run's
-             data, sentinel ids included, 2-D and 1-D values) and WARP's,
-             f32 and bf16 contributions; two launches give the same bits
+  kernel_scatter -- the row aggregation (B8: its plan, then its reduce)
+             against its plain version at a FISM sparse step's shapes (the
+             largest batch of the run's data, sentinel ids included, 2-D
+             and 1-D values) and WARP's, f32 and bf16 contributions; the
+             plan equal to its plain version, two launches the same bits,
+             and P's sums over the shared Q + b_i plan the same bits as over
+             their own; the plan and the reduce timed apart, beside
+             torch.sort of the int64 ids and index_add_
   kernel_gather -- the row gather (B9) exactly equal to its plain version
              at WARP's shapes; out-of-range ids give zero rows
   FISM training path (counts from 0 before train_fism, read after
@@ -51,7 +57,8 @@ Phases, each printed as one JSON line:
   fism_sparse_checks -- one sparse epoch with B8 against one with its
              plain version (index_add) from the same reset and draws, and
              two 2-epoch runs bit for bit
-  train_speed_fism -- warm FISM training users/s, both routes
+  train_speed_fism -- warm FISM training users/s, both routes, with
+             launches, B8 plans and B8 reduces a step
   WARP with B8 and B9 (counts from 0 before, read after; B9, B8, B7, B2):
     train_warp_mxu -- 2 epochs of train_warp's configuration with
              gather_mode="mxu" and scatter_mode="pallas"
@@ -59,12 +66,15 @@ Phases, each printed as one JSON line:
              B8 (bit for bit), and with the native gather and index_add
              (one step within 1e-4; the 2-epoch distance and the native
              route's own run-to-run spread printed, not gated)
-Then the whole run's wall time, the kernel table (each kernel's launches from the path that owns it;
-bound_ms is the least time for the kernel's work at the card's published
-peaks: HBM bytes at 3.35 TB/s against 32-bit operations at 67 T/s), the
-card's name and power limit, and, last, the ok line. Any failed phase
-makes the exit code 1 and leaves out the ok line. Without a CUDA GPU, or
-without the repository beside it, the script exits 2 and prints no result.
+Then the whole run's wall time, the kernel table (each kernel's launches
+from the path that owns it; B8's plan has a row of its own; bound_ms is
+the least time for the kernel's work at the card's published peaks: HBM
+bytes at 3.35 TB/s against 32-bit operations at 67 T/s, or, for B3, which
+multiplies on the tensor cores in 3xTF32, three TF32 products per f32 one
+at 495 T/s), the card's name and power limit, and, last, the ok line.
+Any failed phase makes the exit code 1 and leaves out the ok line. Without
+a CUDA GPU, or without the repository beside it, the script exits 2 and
+prints no result.
 
 Run from the repository root: python3 chip_smoke.py
 """
@@ -103,6 +113,7 @@ WARP_CHI2_BOUND = 330.0  # tests/test_pallas.py's pooled bound, dof 255
 # the bound lower than Hopper's 64 INT32 lanes per SM allow)
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12  # dense TF32 on the tensor cores
 
 # name -> (module of the wrapper, source, TPU kernel it replaces, paths
 # that must launch it; the first owns the table's launch count)
@@ -134,6 +145,11 @@ KERNELS = {
     "scatter_matmul": ("pallas_kernels", "cdae_tpu_torch/csrc/scatter_rows.cu",
                        "cdae_tpu/ops/pallas_kernels.py:1147",
                        ("fism_training", "warp_mxu")),
+    # B8's id sort (the TPU kernel contracts one-hot tiles and sorts
+    # nothing): a wrapper and a count of its own
+    "scatter_plan": ("pallas_kernels", "cdae_tpu_torch/csrc/scatter_rows.cu",
+                     "cdae_tpu/ops/pallas_kernels.py:1147",
+                     ("fism_training", "warp_mxu")),
     "gather_rows_mxu": ("pallas_kernels", "cdae_tpu_torch/csrc/gather_rows.cu",
                         "cdae_tpu/ops/pallas_kernels.py:856", ("warp_mxu",)),
 }
@@ -171,12 +187,13 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, ops_per_s: float = OPS_PER_S) -> dict:
     """The least time the card could take for work that must move
-    ``nbytes`` through HBM and do ``ops`` 32-bit operations: the larger of
+    ``nbytes`` through HBM and do ``ops`` operations at ``ops_per_s``
+    (default: 32-bit operations outside the tensor cores): the larger of
     the two times at the published peaks."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -198,6 +215,28 @@ def median_ms(fn, reps: int = 5) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls queued behind a
+    busy-wait kernel of some 10 ms, so that the host has queued them all
+    before the card starts them, timed by CUDA events around the calls.
+    Where the host takes longer to launch than the card to run, median_ms
+    measures the host; this measures the card, the gaps between dependent
+    launches included."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # cycles: ~10 ms at the H100's clock
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def topk_agreement(ids, vals, plain_ids, plain_vals, k):
@@ -235,7 +274,12 @@ def phase_kernels(torch, P, results):
                    ms=median_ms(lambda: P.decode_scores(z, W, bp)),
                    plain_ms=median_ms(lambda: P.decode_scores_plain(z, W, bp)),
                    library_ms=median_ms(lambda: torch.addmm(bp, z, W.t())),
-                   **bound(4.0 * (B * D + I * D + I + B * I), 2.0 * B * I * D))
+                   device_ms=device_ms(lambda: P.decode_scores(z, W, bp)),
+                   library_device_ms=device_ms(
+                       lambda: torch.addmm(bp, z, W.t())),
+                   # 3xTF32: three tensor-core products per f32 one
+                   **bound(4.0 * (B * D + I * D + I + B * I),
+                           3 * 2.0 * B * I * D, TF32_OPS_PER_S))
         emit(row)
         if err > TOL:
             raise AssertionError(f"decode_scores error {err} > {TOL}")
@@ -949,14 +993,33 @@ def _fism_batch_ids(torch, train, nn=5, batch=128):
     return items.reshape(-1), torch.cat([items.reshape(-1), neg.reshape(-1)])
 
 
+def _host_us(torch, fn, reps: int = 50) -> float:
+    """Host microseconds of one call of ``fn`` (the wrapper's own work and
+    its launches, the device left to run behind): the median over
+    ``reps`` calls, each after a synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def phase_kernel_scatter(torch, held, results):
     """B8 against its plain version at the FISM sparse step's shapes (the
     Q + bi aggregation, (P, 11) and its 1-D bias column, and the P
     aggregation, (P, 10), of the largest batch of the run's data) and at
     WARP's (49,152 item rows x 11, 8,192 user rows x 10), with f32 and bf16
-    contributions. Two launches on one input must give the same bits.
-    library_ms: one index_add_ on the same values, sentinel ids sent to a
-    spare row (index_add_ takes no id out of range)."""
+    contributions. The plan must equal its plain version (the library's
+    stable sort), two launches on one input must give the same bits, and
+    FISM's P sums over the Q + bi plan (limit = the P ids' count) the same
+    bits as over their own plan. Times: the wrapper's whole span (plan +
+    reduce, ``ms``), the plan and the reduce apart, torch.sort of the int64
+    ids (the plan's yardstick) and, as library_ms, one index_add_ on the
+    same values, sentinel ids sent to a spare row (index_add_ takes no id
+    out of range); host_us: the wrappers' host time per call."""
     import cdae_tpu_torch.ops.pallas_kernels as P
 
     dev = torch.device("cuda")
@@ -964,6 +1027,7 @@ def phase_kernel_scatter(torch, held, results):
     train = held["ml1m"][1][0]
     I, U = train.num_items, train.num_users
     p_ids, qb_ids = _fism_batch_ids(torch, train)
+    qb_plan = P.scatter_plan(qb_ids, I)
     cases = (("fism_q_bi", qb_ids, I, 11), ("fism_bi_1d", qb_ids, I, None),
              ("fism_p", p_ids, I, 10),
              ("warp_item", torch.randint(0, I, (49152,), generator=g,
@@ -976,9 +1040,16 @@ def phase_kernel_scatter(torch, held, results):
         shape = (Pn,) if C is None else (Pn, C)
         vals = torch.randn(shape, generator=g, device=dev)
         valid = (idx >= 0) & (idx < N)
+        plan = P.scatter_plan(idx, N)
+        plain_plan = P.scatter_plan_plain(idx, N)
+        torch.cuda.synchronize()
+        plan_equal = all(map(torch.equal, plan, plain_plan))
         row = dict(phase="kernel_scatter", kernel="scatter_matmul", case=name,
                    P=Pn, N=N, C=C or 1, sentinel_ids=int((~valid).sum()),
-                   rtol=ROWS_RTOL, atol_scale=ROWS_ATOL)
+                   rtol=ROWS_RTOL, atol_scale=ROWS_ATOL,
+                   plan_equal_plain=plan_equal)
+        if not plan_equal:
+            bad.append(f"scatter_plan {name}")
         for bf16 in (False, True):
             out = P.scatter_matmul(idx, vals, N, bf16=bf16)
             again = P.scatter_matmul(idx, vals, N, bf16=bf16)
@@ -988,6 +1059,12 @@ def phase_kernel_scatter(torch, held, results):
             same = bool(torch.equal(out, again))
             key = "bf16" if bf16 else "f32"
             row[key] = dict(max_abs_err=err, ok=ok, bit_equal_relaunch=same)
+            if name == "fism_p":  # the step's P sums over the Q + bi plan
+                shared = P.scatter_matmul(idx, vals, N, bf16=bf16,
+                                          plan=qb_plan)
+                row[key]["shared_plan_bit_equal"] = bool(torch.equal(shared,
+                                                                     out))
+                same = same and row[key]["shared_plan_bit_equal"]
             if not (ok and same):
                 bad.append(f"scatter_matmul {name} {key}")
         lib_idx = torch.where(valid, idx, N)
@@ -996,17 +1073,43 @@ def phase_kernel_scatter(torch, held, results):
             max_abs_err=max(row["f32"]["max_abs_err"],
                             row["bf16"]["max_abs_err"]),
             ms=median_ms(lambda: P.scatter_matmul(idx, vals, N)),
+            plan_ms=median_ms(lambda: P.scatter_plan(idx, N)),
+            reduce_ms=median_ms(lambda: P.scatter_matmul(idx, vals, N,
+                                                         plan=plan)),
+            torch_sort_ms=median_ms(lambda: torch.sort(idx, stable=True)),
             plain_ms=median_ms(lambda: P.scatter_matmul_plain(idx, vals, N)),
             library_ms=median_ms(lambda: torch.zeros(
                 spare, device=dev).index_add_(0, lib_idx, vals)),
+            device_ms=dict(
+                span=device_ms(lambda: P.scatter_matmul(idx, vals, N)),
+                plan=device_ms(lambda: P.scatter_plan(idx, N)),
+                reduce=device_ms(lambda: P.scatter_matmul(idx, vals, N,
+                                                          plan=plan)),
+                torch_sort=device_ms(lambda: torch.sort(idx, stable=True)),
+                index_add=device_ms(lambda: torch.zeros(
+                    spare, device=dev).index_add_(0, lib_idx, vals))),
+            host_us=dict(
+                plan=_host_us(torch, lambda: P.scatter_plan(idx, N)),
+                reduce=_host_us(torch, lambda: P.scatter_matmul(
+                    idx, vals, N, plan=plan)),
+                index_add=_host_us(torch, lambda: torch.zeros(
+                    spare, device=dev).index_add_(0, lib_idx, vals))),
             # values, ids and the output once each; one add per value
             **bound(4.0 * vals.numel() + 8.0 * Pn + 4.0 * N * (C or 1),
                     float(vals.numel())))
         emit(row)
         results.setdefault("scatter_matmul", row)
+        if name == "fism_q_bi":
+            # the plan's own row: the int64 ids read, order and offsets
+            # written; its plain version and yardstick are library sorts
+            results["scatter_plan"] = dict(
+                max_abs_err=0.0 if plan_equal else None, ms=row["plan_ms"],
+                plain_ms=median_ms(lambda: P.scatter_plan_plain(idx, N)),
+                library_ms=row["torch_sort_ms"],
+                **bound(8.0 * Pn + 4.0 * Pn + 4.0 * (N + 1), 0.0))
     if bad:
         raise AssertionError(f"B8 disagrees with its plain version or "
-                             f"changes between launches: {bad}")
+                             f"changes between launches or plans: {bad}")
 
 
 def phase_kernel_gather(torch, results):
@@ -1105,12 +1208,13 @@ def phase_train_fism_sparse(torch, held):
     solver = SGDSolver(model, max_iteration=10, eval_iterations=5,
                        learn_rate=dense.learn_rate0, seed=SEED,
                        verbose=False)
-    before = P.scatter_matmul.launches
+    before = (P.scatter_matmul.launches, P.scatter_plan.launches)
     t0 = time.perf_counter()
     solver.train(train, test, ["TOPN"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    b8 = P.scatter_matmul.launches - before
+    b8 = P.scatter_matmul.launches - before[0]
+    plans = P.scatter_plan.launches - before[1]
     hist = solver.history
     r_s, r_d = hist[-1]["R@10"], dense.history[-1]["R@10"]
     finite = _params_finite(solver.state.params)
@@ -1118,7 +1222,7 @@ def phase_train_fism_sparse(torch, held):
     return dict(phase="train_fism_sparse", epochs=10, seconds=wall,
                 scatter_mode=model.cfg.scatter_mode,
                 steps_per_epoch=len(solver.state.aux["sparse_batches"]),
-                b8_launches=b8,
+                b8_launches=b8, b8_plans=plans,
                 recall_at_10={int(r["iter"]): r["R@10"] for r in hist},
                 map_at_10={int(r["iter"]): r["MAP@10"] for r in hist},
                 recall_at_10_dense=r_d, diff=abs(r_s - r_d),
@@ -1171,8 +1275,11 @@ def phase_fism_sparse_checks(torch, held):
 def phase_train_speed_fism(torch, held):
     """Warm FISM training throughput, dense-slab and sparse (B8) routes:
     one warm-up epoch, 2 timed epochs (host clock between synchronizes),
-    users/s = users * epochs / wall; then one epoch under torch.profiler."""
+    users/s = users * epochs / wall; then one epoch under torch.profiler
+    (device kernels a step), counting B8's plans and reduces a step."""
     import dataclasses
+
+    import cdae_tpu_torch.ops.pallas_kernels as P
 
     from cdae_tpu_torch.models.fism import FISM
     from cdae_tpu_torch.solver.solver import _params_finite
@@ -1197,8 +1304,12 @@ def phase_train_speed_fism(torch, held):
             model.train_one_iteration(state, SEED)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        b8 = (P.scatter_plan.launches, P.scatter_matmul.launches)
         prof = _profile(torch, lambda: model.train_one_iteration(state, SEED))
         prof["launches_per_step"] = prof.pop("device_kernels") / steps
+        prof["b8_plans_per_step"] = (P.scatter_plan.launches - b8[0]) / steps
+        prof["b8_reduces_per_step"] = (P.scatter_matmul.launches
+                                       - b8[1]) / steps
         finite = _params_finite(state.params)
         out[route] = dict(seconds_2_epochs=wall, users_per_s=U * 2 / wall,
                           steps_per_epoch=steps,

@@ -3,10 +3,11 @@ PyTorch versions, on a GPU, at ragged shapes: the serving kernels (decode,
 fused top-k), the training kernels (hw_uniform and adagrad_update bit
 for bit, the fused step within f32 summation-order tolerance), the WARP
 violator kernel (counts and picks exact on dyadic inputs), and the row
-aggregation (B8, to summation-order tolerance and the same bits on every
-launch) and row gather (B9, exact) with the paths that launch them. Every test
-is marked ``cuda`` and skips when torch.cuda.is_available() is False (the
-kernels have no CPU mode).
+aggregation (B8: its plan equal to the library's stable sort; its reduce
+to summation-order tolerance and the same bits on every launch and over a
+shared plan) and row gather (B9, exact) with the paths that launch them.
+Every test is marked ``cuda`` and skips when torch.cuda.is_available() is
+False (the kernels have no CPU mode).
 
 This file imports neither jax nor cdae_tpu, so it also runs on a machine
 without them; there, skip the JAX conftest:
@@ -62,15 +63,42 @@ def _on(dev, *arrays):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,D,I", [(48, 20, 700), (1, 7, 5), (130, 200, 999)])
+@pytest.mark.parametrize("B,D,I", [
+    (48, 20, 700), (1, 7, 5), (130, 200, 999), (0, 50, 300), (257, 1, 129),
+    (200, 13, 3706), (129, 50, 3706), (1024, 50, 3706), (300, 200, 2001),
+])
 def test_decode_scores_kernel(cuda, rng_np, B, D, I):
+    """3xTF32 on the tensor cores against the f32 library GEMM, at ragged
+    B and I (not multiples of the 128 x 128 tile) and D from 1 to 200:
+    rtol 1e-5 and atol 1e-4 (f32-level error on N(0, 1) operands)."""
     z, W, bp = _on(cuda, *_problem(rng_np, B, D, I))
     before = P.decode_scores.launches
     got = P.decode_scores(z, W, bp)
     torch.cuda.synchronize()
-    assert P.decode_scores.launches == before + 1
+    assert P.decode_scores.launches == before + (1 if B else 0)
+    assert tuple(got.shape) == (B, I)
     torch.testing.assert_close(got, P.decode_scores_plain(z, W, bp),
                                rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [4, 200])
+def test_decode_scores_kernel_unaligned_rows(cuda, rng_np, D):
+    """D % 4 == 0 but z and W start 4 bytes past a 16-byte boundary: the
+    kernel takes its 4-byte copies and agrees all the same; and its error
+    against an f64 product stays below 1e-4 (one TF32 product per f32 one
+    would miss it by ~1e-2 at D = 200)."""
+    B, I = 70, 333
+    zf, Wf, bp = _on(cuda, *_problem(rng_np, B * D + 1, 1, I * D + 1))
+    bp = bp[:I].contiguous()
+    z = zf.reshape(-1)[1:].reshape(B, D)
+    W = Wf.reshape(-1)[1:].reshape(I, D)
+    got = P.decode_scores(z, W, bp)
+    want = P.decode_scores_plain(z, W, bp)
+    ref64 = z.double() @ W.double().t() + bp.double()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    assert (got.double() - ref64).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda
@@ -348,6 +376,66 @@ def test_scatter_matmul_kernel_matches_plain(cuda, rng_np, Pn, N, C, bf16):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Pn,N", [(0, 7), (1, 1), (5000, 37), (49152, 3706),
+                                  (300000, 3706), (8192, 70000),
+                                  (100000, 2**20)])
+def test_scatter_plan_kernel_equals_torch_sort(cuda, rng_np, Pn, N):
+    """B8's radix-sort plan (1 to 3 passes of 8 bits) against the plain
+    plan, the library's stable sort: the same order (stability) and the
+    same segment starts, on every launch."""
+    idx, _ = _agg_inputs(rng_np, Pn, N, 1)
+    idx = torch.from_numpy(idx).to(cuda)
+    want = P.scatter_plan_plain(idx, N)
+    before = P.scatter_plan.launches
+    got = P.scatter_plan(idx, N)
+    again = P.scatter_plan(idx, N)
+    torch.cuda.synchronize()
+    assert P.scatter_plan.launches == before + 2
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == torch.int32 and torch.equal(a, c)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 10, 11, 32, 33, 64])
+@pytest.mark.parametrize("Pn,N", [(600, 3706), (49152, 3706),
+                                  (300000, 3706), (8192, 6040)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_scatter_reduce_lane_groups(cuda, rng_np, C, Pn, N, bf16):
+    """The reduce's lane groups (C rounded up to a power of two, groups a
+    row from the mean segment length) within the plain version's
+    tolerance, the same bits on a second launch, and over a prefix of the
+    ids the same bits with the longer vector's plan (limit) as with the
+    prefix's own."""
+    idx, vals = _on(cuda, *_agg_inputs(rng_np, Pn, N, C))
+    want = P.scatter_matmul_plain(idx, vals, N, bf16=bf16)
+    plan = P.scatter_plan(idx, N)
+    got = P.scatter_matmul(idx, vals, N, bf16=bf16, plan=plan)
+    again = P.scatter_matmul(idx, vals, N, bf16=bf16, plan=plan)
+    head = Pn // 3
+    own = P.scatter_matmul(idx[:head], vals[:head], N, bf16=bf16)
+    shared = P.scatter_matmul(idx[:head], vals[:head], N, bf16=bf16,
+                              plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(own, shared)
+    scale = max(float(want.abs().max()), 1.0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [None, 1, 11, 33])
+def test_scatter_matmul_kernel_all_ids_out_of_range(cuda, rng_np, C):
+    Pn, N = 5000, 300
+    idx, vals = _on(cuda, *_agg_inputs(rng_np, Pn, N, C))
+    idx = torch.where(idx % 2 == 0, N + idx.abs(), -1 - idx.abs())
+    plan = P.scatter_plan(idx, N)
+    got = P.scatter_matmul(idx, vals, N, plan=plan)
+    torch.cuda.synchronize()
+    assert not plan.offsets.any() and not got.any()
+    assert tuple(got.shape) == (N,) + tuple(vals.shape[1:])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("Pn,N,C", [(0, 5, 3), (301, 777, 13), (400, 50, 11),
                                    (49152, 3706, 11), (8192, 6040, 10),
                                    (100, 9, 4), (65, 20, 128)])
@@ -409,20 +497,23 @@ def test_cuda_paths_launch_the_row_kernels(cuda, rng_np):
                             dense_mode=False), device="cuda")
     assert model.cfg.scatter_mode == "pallas"
     state = model.reset(data, seed=1)
-    counts = (P.scatter_matmul.launches, P.adagrad_update.launches)
+    counts = (P.scatter_matmul.launches, P.adagrad_update.launches,
+              P.scatter_plan.launches)
     model.train_one_iteration(state, 5)
     steps = len(state.aux["sparse_batches"])
     assert P.scatter_matmul.launches == counts[0] + 2 * steps  # Q+bi, P
     assert P.adagrad_update.launches == counts[1] + 4 * steps
+    assert P.scatter_plan.launches == counts[2] + steps  # one shared plan
 
     warp = WARP(MFConfig(num_dim=6, batch_size=64, gather_mode="mxu",
                          scatter_mode="pallas", loss="HINGE", beta=0.0,
                          lambda_=0.1), device="cuda")
     ws = warp.reset(data, seed=1)
     counts = (P.gather_rows_mxu.launches, P.scatter_matmul.launches,
-              P.warp_violator_select.launches)
+              P.warp_violator_select.launches, P.scatter_plan.launches)
     warp.train_one_iteration(ws, 5)
     n = -(-len(data) // 64)
     assert P.gather_rows_mxu.launches == counts[0] + 2 * n
     assert P.scatter_matmul.launches == counts[1] + 2 * n
     assert P.warp_violator_select.launches == counts[2] + n
+    assert P.scatter_plan.launches == counts[3] + 2 * n  # items, users

@@ -112,6 +112,78 @@ def test_scatter_add_rows_pallas_modes_match_cdae_tpu(rng_np, mode, width):
                                atol=1e-6)
 
 
+# ------------------------------------------------------------ B8's plan ----
+
+@pytest.mark.parametrize("P,N", [(0, 5), (1, 1), (300, 1), (700, 37),
+                                 (5000, 3706)])
+def test_scatter_plan_plain_is_a_stable_sort(rng_np, P, N):
+    """order: the positions stably sorted by key (an id in [0, N), else the
+    sentinel N, last); offsets[n]: segment n's start, offsets[N] the count
+    of ids in range."""
+    idx = _ids(rng_np, P, N)
+    before = TP.scatter_plan.launches
+    plan = TP.scatter_plan(torch.from_numpy(idx).long(), N)
+    assert TP.scatter_plan.launches == before  # CPU: the plain version
+    assert plan.offsets.dtype == plan.order.dtype == torch.int32
+    keys = np.where((idx >= 0) & (idx < N), idx, N)
+    np.testing.assert_array_equal(plan.order.numpy(),
+                                  np.argsort(keys, kind="stable"))
+    np.testing.assert_array_equal(
+        plan.offsets.numpy(), np.searchsorted(np.sort(keys), np.arange(N + 1)))
+    assert plan.offsets[-1] == ((idx >= 0) & (idx < N)).sum()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("C", [1, 10, 11, 33])
+@pytest.mark.parametrize("P", [0, 900])
+def test_scatter_matmul_with_plan_and_limit_matches_cdae_tpu(rng_np, bf16, C,
+                                                             P):
+    """A plan of a longer id vector whose first P ids are ``idx`` (the
+    limit P = len(vals)): equal to cdae_tpu's interpret-mode kernel on
+    ``idx`` alone, and bit for bit to the port with ``idx``'s own plan and
+    with none."""
+    N = 41
+    full = _ids(rng_np, P + 500, N)
+    idx = full[:P]
+    vals = rng_np.standard_normal((P, C)).astype(np.float32)
+    want = np.asarray(JP.scatter_matmul(
+        jnp.asarray(idx), jnp.asarray(vals), N,
+        vals_dtype=jnp.bfloat16 if bf16 else jnp.float32))
+    t_idx, t_vals = torch.from_numpy(idx).long(), torch.from_numpy(vals)
+    shared = TP.scatter_plan(torch.from_numpy(full).long(), N)
+    got = TP.scatter_matmul(t_idx, t_vals, N, bf16=bf16, plan=shared)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    own = TP.scatter_matmul(t_idx, t_vals, N, bf16=bf16,
+                            plan=TP.scatter_plan(t_idx, N))
+    assert torch.equal(got, own)
+    assert torch.equal(got, TP.scatter_matmul(t_idx, t_vals, N, bf16=bf16))
+
+
+def test_scatter_matmul_plan_drops_every_id_out_of_range(rng_np):
+    """Sentinel, past-the-end and negative ids only: every segment is
+    empty and the sum is zero, 1-D values too."""
+    idx = torch.tensor([7, 7, 9, -1, -5, 7])
+    plan = TP.scatter_plan(idx, 7)
+    assert not plan.offsets.any()
+    for shape in ((6, 3), (6,)):
+        vals = torch.from_numpy(rng_np.standard_normal(shape)
+                                .astype(np.float32))
+        got = TP.scatter_matmul(idx, vals, 7, plan=plan)
+        assert tuple(got.shape) == (7,) + shape[1:] and not got.any()
+
+
+@pytest.mark.parametrize("mode", ["pallas", "pallas_bf16", "scatter"])
+def test_row_plan_only_for_the_kernel_modes(mode):
+    idx = torch.tensor([3, 0, 3, 5])
+    plan = tscatter.row_plan(idx, 4, mode)
+    assert (plan is None) == (mode == "scatter")
+    base = torch.ones((4, 2))
+    vals = torch.arange(8, dtype=torch.float32).reshape(4, 2)
+    assert torch.equal(
+        tscatter.scatter_add_rows(base, idx, vals, mode=mode, plan=plan),
+        tscatter.scatter_add_rows(base, idx, vals, mode=mode))
+
+
 # ------------------------------------------------------------------- B9 ----
 
 @pytest.mark.parametrize("N,C,P", [(777, 13, 301), (50, 11, 400),
@@ -274,3 +346,87 @@ def test_warp_step_with_b8_b9_matches_native_and_cdae_tpu(warp_pair,
         if scatter_mode == "pallas":
             np.testing.assert_allclose(got[k].numpy(), native[k].numpy(),
                                        rtol=1e-6, atol=1e-6, err_msg=k)
+
+
+def test_params_from_numpy_owns_its_memory():
+    """The models update their tables in place, so the tensors must not
+    share memory with the caller's arrays: the WARP and FISM tests hand the
+    same arrays to cdae_tpu, whose jnp.asarray may alias them (zero-copy)
+    and read them later (asynchronous dispatch)."""
+    p = {"uv": np.ones((4, 3), np.float32), "ib": np.zeros(4, np.float32),
+         "T": np.asfortranarray(np.ones((2, 5), np.float32))}
+    t = tckpt.params_from_numpy(p, "cpu")
+    for name in t:
+        t[name] += 1.0
+        assert t[name].dtype == torch.float32 and t[name].is_contiguous()
+    assert (p["uv"] == 1.0).all() and not p["ib"].any()
+    assert (p["T"] == 1.0).all()
+
+
+# ------------------------------------------ a step's plans against none ----
+
+def _no_plans(monkeypatch, module):
+    """Make ``module``'s steps build no plan (each B8 call sorts on its
+    own); returns the list of the plans they asked for."""
+    asked = []
+    monkeypatch.setattr(module, "row_plan",
+                        lambda *args: asked.append(args) or None)
+    return asked
+
+
+@pytest.mark.parametrize("cls", ["FISM", "FISMPair"])
+@pytest.mark.parametrize("scatter_mode", ["pallas", "pallas_bf16"])
+def test_fism_steps_with_a_shared_plan_equal_steps_without(
+        movielens_path, monkeypatch, cls, scatter_mode):
+    """One sparse epoch with one plan per step (FISM's Q + b_i and P sums,
+    FISMPair's b_i, Q and P sums) against the same epoch with none: the
+    same bits (each row sums its contributions in ascending p either
+    way)."""
+    import cdae_tpu_torch.models.fism as tfism
+
+    train = TInteractions.from_text(movielens_path, tparser).split_by_user(
+        0.2, seed=SEED)[0]
+    model = getattr(tfism, cls)(tfism.FISMConfig(
+        num_dim=6, num_neg=3, batch_size=16, dense_mode=False,
+        scatter_mode=scatter_mode), device="cpu")
+
+    def epoch():
+        state = model.reset(train, seed=0)
+        model.train_one_iteration(state, SEED)
+        return state.params
+
+    with_plan = epoch()
+    asked = _no_plans(monkeypatch, tfism)
+    without = epoch()
+    assert asked  # one plan per step was asked for
+    for k in with_plan:
+        assert torch.equal(with_plan[k], without[k]), k
+
+
+@pytest.mark.parametrize("scatter_mode", ["pallas", "pallas_bf16"])
+def test_warp_step_with_plans_equals_step_without(warp_pair, monkeypatch,
+                                                  scatter_mode):
+    """WARP's item and user sums, each over its own plan, against the same
+    step with none: the same bits."""
+    modes = dict(gather_mode="mxu", scatter_mode=scatter_mode)
+    _, js, tm, ts = _warp(warp_pair, use_pallas=True, **modes)
+    _, _, _, ts2 = _warp(warp_pair, use_pallas=True, **modes)
+    rng = np.random.default_rng(5)
+    users, items, _ = js.aux["coo"]
+    sel = rng.integers(0, len(users), B)
+    w = np.ones(B, np.float32)
+    w[-3:] = 0.0
+    u = torch.from_numpy(users[sel]).long()
+    targs = (u, torch.from_numpy(items[sel]).long(), torch.from_numpy(w),
+             torch.from_numpy(js.padded.lengths[users[sel]]), (0, 0))
+    draws = dict(sel_seed=1234, u1=torch.from_numpy(
+        rng.uniform(1e-7, 1.0, (B, NN)).astype(np.float32)))
+    got = tmf.WARP._dense_path(ts.params, *targs, tm._epoch_extras(ts)[0][u],
+                               cfg=tm.cfg, loss=tm.loss, **draws)
+    asked = _no_plans(monkeypatch, tmf)
+    plain = tmf.WARP._dense_path(ts2.params, *targs,
+                                 tm._epoch_extras(ts2)[0][u], cfg=tm.cfg,
+                                 loss=tm.loss, **draws)
+    assert len(asked) == 2  # the item sums' and the user sums'
+    for k in got:
+        assert torch.equal(got[k], plain[k]), k

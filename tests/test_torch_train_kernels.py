@@ -64,9 +64,12 @@ def test_adagrad_update_plain_matches_pallas(rng_np):
     p = rng_np.standard_normal((N, D)).astype(np.float32)
     a = np.abs(rng_np.standard_normal((N, D))).astype(np.float32) + 1e-4
     g = rng_np.standard_normal((N, D)).astype(np.float32)
-    want = jadagrad(jnp.asarray(p), jnp.asarray(a), jnp.asarray(g), 0.1, 1.0,
-                    tile=128)
+    # cdae_tpu's kernel donates param and acc, and jnp.asarray may alias a
+    # numpy array's memory: the port's inputs are taken first, and the
+    # donated buffers are copies that nothing else reads
     tp, ta = torch.from_numpy(p.copy()), torch.from_numpy(a.copy())
+    want = jadagrad(jnp.array(p, copy=True), jnp.array(a, copy=True),
+                    jnp.asarray(g), 0.1, 1.0, tile=128)
     got = P.adagrad_update(tp, ta, torch.from_numpy(g), 0.1, 1.0)
     assert got[0] is tp and got[1] is ta  # in place
     np.testing.assert_allclose(ta.numpy(), np.asarray(want[1]), rtol=1e-6)
@@ -79,9 +82,9 @@ def test_adagrad_update_plain_1d_matches_pallas(rng_np):
     p = rng_np.standard_normal(N).astype(np.float32)
     a = np.full(N, 1e-4, np.float32)
     g = rng_np.standard_normal(N).astype(np.float32)
-    want = jadagrad(jnp.asarray(p), jnp.asarray(a), jnp.asarray(g), 0.05,
-                    0.0)
     tp = torch.from_numpy(p.copy())
+    want = jadagrad(jnp.array(p, copy=True), jnp.array(a, copy=True),
+                    jnp.asarray(g), 0.05, 0.0)
     P.adagrad_update_plain(tp, torch.from_numpy(a.copy()),
                            torch.from_numpy(g), 0.05, 0.0)
     assert tp.shape == (N,)
