@@ -16,11 +16,10 @@ Two routes, as in cdae_tpu:
     batches of all of a user's positives (``bucket_by_length`` trims each
     batch's item axis to a power of two), num_neg * L exact complement
     draws (``sample_unrated``), and the Q + b_i and P gradients summed into
-    the tables by ``scatter_add_rows``. ``scatter_mode="auto"`` pins
-    ``"pallas"`` on a CUDA device, as cdae_tpu pins it on a TPU, so the
-    sums go through kernel B8 (a fixed summation order: the route is
-    reproducible bit for bit on the card); on the CPU auto stays one
-    ``index_add``.
+    the tables by ``scatter_add_rows``. On a CUDA device the default
+    ``scatter_mode="auto"``, like every mode but ``"scatter"``, sums
+    through kernel B8 (a fixed summation order: the route is reproducible
+    bit for bit on the card); on the CPU auto stays one ``index_add``.
 Both apply one AdaGrad step per batch without beta (accumulators at 1e-4;
 kernel B2 on a CUDA device) and refresh x for the batch's users from the
 updated P by a delta-add (padding rows repeat uid 0 at weight 0); an epoch
@@ -80,7 +79,7 @@ class FISMConfig:
     using_adagrad: bool = True
     learn_rate: float = 0.01  # the SGD solver's step size sets it
     batch_size: int = 128  # users per batch
-    scatter_mode: str = "auto"  # ops/scatter.py; auto = "pallas" on CUDA
+    scatter_mode: str = "auto"  # ops/scatter.py; auto is B8 on CUDA
     bucket_by_length: bool = True  # trim each sparse batch's item axis to
     # the next power of two of its longest row (users sorted by length)
     dense_mode: Optional[bool] = None  # the (B, I) slab step; None = auto
@@ -105,10 +104,6 @@ class FISM(RecsysModel):
                  **kw):
         self.device = resolve_device(device)
         self.cfg = config if config is not None else FISMConfig(**kw)
-        if self.cfg.scatter_mode == "auto" and self.device.type == "cuda":
-            # cdae_tpu pins its Pallas aggregation (B8) on a TPU, measured
-            # there as FISM's fastest; here B8 is the deterministic one
-            self.cfg = dataclasses.replace(self.cfg, scatter_mode="pallas")
         self.loss = Loss.create(self.cfg.loss)
         self.penalty = Penalty.create(self.cfg.penalty)
         self._lr = self.cfg.learn_rate

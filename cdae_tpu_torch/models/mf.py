@@ -21,9 +21,10 @@ scores, a cumulative count and one ``searchsorted`` per pick. The AdaGrad
 sweeps of uv and iv go through ``adagrad_update`` (kernel B2). With
 ``gather_mode="mxu"`` the step's row gathers are kernel B9
 (``gather_rows_mxu``: one call for the B*(1+nn) item rows with the bias
-column, one for the B user rows), and with ``scatter_mode="pallas"`` or
-``"pallas_bf16"`` its row sums are kernel B8 (``scatter_add_rows``), whose
-fixed summation order makes the step reproducible bit for bit on the card.
+column, one for the B user rows). On a CUDA device every ``scatter_mode``
+but ``"scatter"``, the default ``"auto"`` included, sums the step's rows
+with kernel B8 (``scatter_add_rows``), whose fixed summation order makes
+the step reproducible bit for bit on the card.
 
 Random draws. cdae_tpu's threefry and TPU hardware streams cannot be
 reproduced in torch. Each epoch's permutation comes from a generator seeded
@@ -105,8 +106,8 @@ class MFConfig:
     # the AdaGrad kernel (B2); None = on a CUDA device
     warp_pool: Optional[int] = None  # WARP pool path (not ported)
     gather_mode: str = "auto"  # auto|native|mxu ("mxu" is kernel B9)
-    scatter_mode: str = "auto"  # pallas* is kernel B8, every other mode one
-    # index_add
+    scatter_mode: str = "auto"  # ops/scatter.py: pallas* is kernel B8, and
+    # on CUDA every mode but "scatter" (one index_add) is too
     dtype: Any = torch.float32
 
 
@@ -221,7 +222,7 @@ def _pairwise_grads(params, u, i, j, w, cfg: MFConfig, loss: Loss,
     C = pos_vals.shape[-1]
     sm = cfg.scatter_mode
     item_ids = torch.cat([i, j.reshape(-1)])
-    # item and user sums have different ids: a plan each (pallas modes)
+    # item and user sums have different ids: a plan each (B8's modes)
     acc = scatter_add_rows(
         torch.zeros((I, C), dtype=pos_vals.dtype, device=pos_vals.device),
         item_ids, torch.cat([pos_vals, neg_vals.reshape(-1, C)]), mode=sm,

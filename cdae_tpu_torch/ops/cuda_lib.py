@@ -46,7 +46,7 @@ _SIGNATURES = {
     "cdae_hw_uniform": (_P, _I, _I, _I, _I, _P),
     "cdae_adagrad_update": (_P, _P, _P, _I, _F, _F, _I, _P),
     "cdae_fused_step": (_P,) * 14 + (_I,) * 4 + (_F,) * 5 + (_I,) * 5 + (_P,),
-    "cdae_warp_select": (_I,) + (_P,) * 10 + (_I,) * 7 + (_P,),
+    "cdae_warp_select": (_I,) + (_P,) * 8 + (_I,) * 7 + (_P,),
     "cdae_scatter_plan": (_P, _I, _I, _P, _P, _P, _P),
     "cdae_scatter_reduce": (_P, _P, _P, _P) + (_I,) * 5 + (_P,),
     "cdae_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _P),

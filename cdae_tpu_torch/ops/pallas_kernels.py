@@ -478,8 +478,11 @@ adagrad_update.launches = 0
 
 _MAX_NN = 32  # per-row selection slots the kernel keeps in registers
 _MAX_WARP_D = 128
-_ROWS_PER_BLOCK = 32  # csrc/warp_select.cu kRowsPerBlock
-_SMEM_FLOATS = 48 * 1024 // 4  # the kernel's static shared-memory budget
+# csrc/warp_select.cu: its dynamic shared-memory limit (Hopper's opt-in
+# 227 KB less 1 KB), its 128-column chunks and at most 63 of them a split
+_WARP_SMEM_FLOATS = (232448 - 1024) // 4
+_WARP_CHUNK = 128
+_WARP_MAX_SPLIT = 63 * _WARP_CHUNK
 # cdae_tpu's _warp_select_kernel constants as unsigned 32-bit values; C1
 # multiplies the column and C2 the row (the reverse of hw_uniform's hash)
 _WARP_C1 = 0x9E3779B9
@@ -603,21 +606,23 @@ def warp_violator_select(
     j = torch.empty((B, nn), dtype=torch.int32, device=dev)
     if B == 0:
         return nviol, j
-    # catalog splits: as many items as the shared-memory budget holds,
-    # fewer when that gives each SM about 8 blocks
-    cap = (_SMEM_FLOATS - _ROWS_PER_BLOCK * D) // (D + 1) // 32 * 32
-    want = _cdiv(8 * _num_sms(dev.index or 0), _cdiv(B, _ROWS_PER_BLOCK))
-    per_split = min(cap, _cdiv(_cdiv(I, want), 32) * 32)
-    splits = _cdiv(I, per_split)
-    part_cnt = torch.empty((B, splits), dtype=torch.int32, device=dev)
-    part_best = torch.empty((B, splits, nn), dtype=torch.int32, device=dev)
-    part_col = torch.empty((B, splits, nn), dtype=torch.int32, device=dev)
+    # catalog splits: as few as the shared-memory limit allows (one at D = 10
+    # up to 5,120 items), of equal size; only several need the partials
+    rows = 64 if nn <= 8 else 32  # the kernel's rows per block
+    cap = min(_WARP_MAX_SPLIT, (_WARP_SMEM_FLOATS - rows * D - 4 * D)
+              // (D + 1) // _WARP_CHUNK * _WARP_CHUNK)
+    splits = _cdiv(I, cap)
+    per_split = _cdiv(_cdiv(I, splits), _WARP_CHUNK) * _WARP_CHUNK
+    part = None
+    if splits > 1:
+        part = torch.empty((B * splits * (1 + 2 * nn) + _cdiv(B, rows),),
+                           dtype=torch.int32, device=dev)
     seed32 = ((int(seed) + 2**31) & _MASK32) - 2**31  # as a C int
     rc = cuda_lib.lib().cdae_warp_select(
         seed32, uv_u.data_ptr(), iv.data_ptr(), ib.data_ptr(), thr.data_ptr(),
-        mask_rows.data_ptr(), part_cnt.data_ptr(), part_best.data_ptr(),
-        part_col.data_ptr(), nviol.data_ptr(), j.data_ptr(), B, I, D, nn,
-        splits, per_split, _WARP_NOISE[noise], _stream(dev),
+        mask_rows.data_ptr(), None if part is None else part.data_ptr(),
+        nviol.data_ptr(), j.data_ptr(), B, I, D,
+        nn, splits, per_split, _WARP_NOISE[noise], _stream(dev),
     )
     cuda_lib.check(rc, "warp_violator_select")
     warp_violator_select.launches += 1
@@ -790,36 +795,54 @@ def gather_rows_mxu_plain(table: torch.Tensor, idx: torch.Tensor
     return torch.where(valid[:, None], rows, 0.0)
 
 
+def _gather_fn():
+    """The row gather's C entry point, bound once (ctypes attribute lookup
+    and the library's lock are host time on every call otherwise)."""
+    global _GATHER
+    if _GATHER is None:
+        from cdae_tpu_torch.ops import cuda_lib
+
+        _GATHER = cuda_lib.lib().cdae_gather_rows
+    return _GATHER
+
+
+_GATHER = None
+
+
 def gather_rows_mxu(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(P, C) float32 rows ``table[idx]`` of a (N, C) float32 table for
     ``idx`` (P,) int64; an id outside [0, N) gives a zero row. Exact (a
-    copy)."""
-    if not _on_cuda(table):
+    copy). At WARP's shapes the wrapper's host work is most of the call,
+    so its hot path makes one check per argument, one allocation and one
+    ctypes call."""
+    if not table.is_cuda:
+        _on_cuda(table)  # raises for a device that is neither
         return gather_rows_mxu_plain(table, idx)
-    from cdae_tpu_torch.ops import cuda_lib
-
-    dev = table.device
-    if table.dim() != 2 or idx.dim() != 1:
-        raise ValueError(f"table {tuple(table.shape)} and idx "
-                         f"{tuple(idx.shape)}: expected (N, C) and (P,)")
+    fn = _GATHER or _gather_fn()
+    if (table.dtype != torch.float32 or table.dim() != 2
+            or not table.is_contiguous()):
+        _require(table, "table", torch.float32, (None, None), table.device)
+    index = table.get_device()
+    if (idx.get_device() != index or idx.dtype != torch.int64
+            or idx.dim() != 1 or not idx.is_contiguous()):
+        _require(idx, "idx", torch.int64, (None,), table.device)
     N, C = table.shape
     P = idx.shape[0]
-    _require(table, "table", torch.float32, (N, C), dev)
-    _require(idx, "idx", torch.int64, (P,), dev)
-    if P * C >= 2**31:
-        raise ValueError(f"P*C = {P * C}: the kernel takes < 2**31 elements")
-    out = torch.empty((P, C), dtype=torch.float32, device=dev)
+    if P * C >= 2**31 or N >= 2**31:
+        raise ValueError(f"P*C = {P * C}, N = {N}: the kernel takes < 2**31 "
+                         "of each")
+    out = table.new_empty((P, C))  # the allocator aligns it to 16 bytes
     if P == 0 or C == 0:
         return out
-    # the widest vector (16, 8 or 4 bytes) that C and both pointers allow
-    vec = next(v for v in (4, 2, 1) if C % v == 0
-               and table.data_ptr() % (4 * v) == 0
-               and out.data_ptr() % (4 * v) == 0)
-    rc = cuda_lib.lib().cdae_gather_rows(
-        table.data_ptr(), idx.data_ptr(), out.data_ptr(), P, N, C, vec,
-        _stream(dev),
-    )
-    cuda_lib.check(rc, "gather_rows_mxu")
+    ptr = table.data_ptr()
+    # 16-byte reads of whole rows where C and the table's alignment allow
+    rc = fn(ptr, idx.data_ptr(), out.data_ptr(), P, N, C,
+            4 if C % 4 == 0 and ptr % 16 == 0 else 1,
+            torch._C._cuda_getCurrentRawStream(index))
+    if rc:
+        from cdae_tpu_torch.ops import cuda_lib
+
+        cuda_lib.check(rc, "gather_rows_mxu")
     gather_rows_mxu.launches += 1
     return out
 

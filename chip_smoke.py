@@ -5,9 +5,9 @@ Phases, each printed as one JSON line:
   build   -- compile the CUDA kernels from cdae_tpu_torch/csrc (nvcc, one
              process per source, in parallel)
   kernel  -- each kernel against its plain PyTorch version on the card, at
-             the shapes its path gives it; error and median times (B3,
-             like B8 below, also its device time beside its library
-             call's: device_ms)
+             the shapes its path gives it; error, median spans and device
+             time (device_ms; beside the library call's where one exists),
+             for every kernel here and in the phases below
   serving path (counts from 0 before slice, read after dense_1m):
     slice   -- ML-1M-scale CDAE serving at D=50 through the CLI --task test
                (dense_R encode + decode kernel + TOPN), checked against the
@@ -30,13 +30,16 @@ Phases, each printed as one JSON line:
              and config-4 (50,000 x 20,000, D=200, 1 GB dense_R)
   kernel_warp -- the WARP violator kernel (B7) against its plain version at
              (B, I, D, nn) = (8192, 3706, 10, 5) and (8192, 20000, 10, 5),
-             and the chi-square of its picks
-  WARP training path (counts from 0 before, read after; B7 and B2):
+             both noises, its span and device time (and its device time
+             with no violator), and the chi-square of its picks
+  WARP training path (counts from 0 before, read after; B7, B8 and B2):
     train_warp -- ML-1M-scale low-rank data, D=10, batch 8192, 10 epochs
              through the CLI --task train --method WARP; R@10 must rise
   train_warp_xla -- the same 10 epochs with use_pallas=False (the cumsum
              route): R@10 within 0.03 of the kernel run
-  train_speed_warp -- warm WARP training users/s, both routes
+  train_speed_warp -- warm WARP training users/s: the kernel route (its
+             default scatter_mode "auto" runs B8), the same with
+             index_add_ (scatter_mode "scatter"), and the cumsum route
   kernel_scatter -- the row aggregation (B8: its plan, then its reduce)
              against its plain version at a FISM sparse step's shapes (the
              largest batch of the run's data, sentinel ids included, 2-D
@@ -46,7 +49,8 @@ Phases, each printed as one JSON line:
              their own; the plan and the reduce timed apart, beside
              torch.sort of the int64 ids and index_add_
   kernel_gather -- the row gather (B9) exactly equal to its plain version
-             at WARP's shapes; out-of-range ids give zero rows
+             at WARP's shapes; out-of-range ids give zero rows; its span,
+             device time and host time beside index_select's
   FISM training path (counts from 0 before train_fism, read after
   train_fism_sparse; B8, B2):
     train_fism -- the same low-rank data, D=10, 10 epochs through the CLI
@@ -63,9 +67,11 @@ Phases, each printed as one JSON line:
     train_warp_mxu -- 2 epochs of train_warp's configuration with
              gather_mode="mxu" and scatter_mode="pallas"
   warp_mxu_vs_native -- the same 2 epochs with the native gather and
-             B8 (bit for bit), and with the native gather and index_add
-             (one step within 1e-4; the 2-epoch distance and the native
-             route's own run-to-run spread printed, not gated)
+             B8 (bit for bit); the default route (scatter_mode "auto",
+             which runs B8) twice, bit for bit equal to itself and to the
+             mxu route; and with the native gather and index_add (one step
+             within 1e-4; the 2-epoch distance and that route's own
+             run-to-run spread printed, not gated)
 Then the whole run's wall time, the kernel table (each kernel's launches
 from the path that owns it; B8's plan has a row of its own; bound_ms is
 the least time for the kernel's work at the card's published peaks: HBM
@@ -142,14 +148,15 @@ KERNELS = {
                              "cdae_tpu_torch/csrc/warp_select.cu",
                              "cdae_tpu/ops/pallas_kernels.py:1028",
                              ("warp_training", "warp_mxu")),
+    # WARP's default route sums through B8 too (scatter_mode "auto")
     "scatter_matmul": ("pallas_kernels", "cdae_tpu_torch/csrc/scatter_rows.cu",
                        "cdae_tpu/ops/pallas_kernels.py:1147",
-                       ("fism_training", "warp_mxu")),
+                       ("fism_training", "warp_training", "warp_mxu")),
     # B8's id sort (the TPU kernel contracts one-hot tiles and sorts
     # nothing): a wrapper and a count of its own
     "scatter_plan": ("pallas_kernels", "cdae_tpu_torch/csrc/scatter_rows.cu",
                      "cdae_tpu/ops/pallas_kernels.py:1147",
-                     ("fism_training", "warp_mxu")),
+                     ("fism_training", "warp_training", "warp_mxu")),
     "gather_rows_mxu": ("pallas_kernels", "cdae_tpu_torch/csrc/gather_rows.cu",
                         "cdae_tpu/ops/pallas_kernels.py:856", ("warp_mxu",)),
 }
@@ -325,6 +332,7 @@ def _check_topk(torch, results, name, B, I, D, k, kernel, plain, work):
                max_abs_err=err, tol=TOL, rows_checked=checked,
                rows_with_other_ids=other,
                ms=median_ms(lambda: kernel(k), reps=3),
+               device_ms=device_ms(lambda: kernel(k), reps=5),
                plain_ms=median_ms(lambda: plain(k), reps=3),
                library_ms=None, **work)
     emit(row)
@@ -356,6 +364,8 @@ def phase_train_kernels(torch, results):
                    mean=out.mean().item(), var=out.var().item(),
                    ms=median_ms(lambda: P.hw_uniform(SEED, shape, 1,
                                                      device=dev)),
+                   device_ms=device_ms(lambda: P.hw_uniform(
+                       SEED, shape, 1, device=dev)),
                    plain_ms=median_ms(lambda: P.hw_uniform_plain(
                        SEED, shape, 1, device=dev)),
                    # no library call draws this hash stream (torch.rand is
@@ -396,6 +406,9 @@ def phase_train_kernels(torch, results):
                    plain_ms=median_ms(lambda: P.adagrad_update_plain(
                        pw, aw, gr, 0.1, 1.0)),
                    library_ms=median_ms(opt.step),
+                   device_ms=device_ms(lambda: P.adagrad_update(
+                       pw, aw, gr, 0.1, 1.0)),
+                   library_device_ms=device_ms(opt.step),
                    **bound(20.0 * n, 7.0 * n))
         emit(row)
         results.setdefault("adagrad_update", row)
@@ -448,6 +461,9 @@ def phase_train_kernels(torch, results):
                    max_abs_err=per["W"]["max_abs_err"], ok=ok,
                    ms=median_ms(lambda: F.cdae_dense_step_fused(
                        SEED, rows, w_user, p_neg, h_bias, *args, **kw)),
+                   device_ms=device_ms(lambda: F.cdae_dense_step_fused(
+                       SEED, rows, w_user, p_neg, h_bias, *args, **kw),
+                       reps=10),
                    plain_ms=median_ms(lambda: F.cdae_dense_step_fused_plain(
                        SEED, rows, w_user, p_neg, h_bias, *args, **kw)),
                    # no library call does a whole CDAE step; the work is
@@ -776,12 +792,19 @@ def phase_kernel_warp(torch, results):
         viol_total = int(p_nviol.sum())
         err = max((nviol - p_nviol).abs().max().item(),
                   (j - p_j).abs().max().item())
+        quiet = (*args[:3], torch.full_like(args[3], float("inf")), *args[4:])
         row = dict(phase="kernel_warp", kernel="warp_violator_select", B=B,
                    I=I, D=D, nn=nn, nviol_equal=nviol_equal,
                    hash_noise_equal=h_equal, rows_checked=B,
                    j_rows_differ=j_rows_differ,
                    mean_nviol=viol_total / B, max_abs_err=err,
                    ms=median_ms(lambda: P.warp_violator_select(SEED, *args)),
+                   device_ms=device_ms(
+                       lambda: P.warp_violator_select(SEED, *args)),
+                   # the same rows with no violator (thr = inf): scores,
+                   # mask and staging without the violators' noise
+                   device_ms_no_violators=device_ms(
+                       lambda: P.warp_violator_select(SEED, *quiet)),
                    plain_ms=median_ms(
                        lambda: P.warp_violator_select_plain(SEED, *args),
                        reps=3),
@@ -937,9 +960,15 @@ def phase_train_speed_warp(torch, held):
                items=train.num_items, instances=n, batch=cfg.batch_size,
                steps_per_epoch=steps)
     ok = True
-    for use_pallas in (True, False):
-        model = WARP(dataclasses.replace(cfg, use_pallas=use_pallas),
-                     device="cuda")
+    # the kernel route (B7, and B8 for the default scatter_mode "auto"),
+    # the same with index_add_'s sums (the price of a fixed order), and
+    # the cumsum route
+    routes = (("kernel", dict(use_pallas=True)),
+              ("kernel_index_add", dict(use_pallas=True,
+                                        scatter_mode="scatter")),
+              ("xla", dict(use_pallas=False)))
+    for route, kw in routes:
+        model = WARP(dataclasses.replace(cfg, **kw), device="cuda")
         state = model.reset(train, seed=SEED)
         model.train_one_iteration(state, SEED)  # warm-up, builds the mask
         torch.cuda.synchronize()
@@ -952,7 +981,7 @@ def phase_train_speed_warp(torch, held):
         prof = _profile(torch, lambda: model.train_one_iteration(state, SEED))
         prof["launches_per_step"] = prof.pop("device_kernels") / steps
         finite = _params_finite(state.params)
-        out["kernel" if use_pallas else "xla"] = dict(
+        out[route] = dict(
             seconds_2_epochs=wall, users_per_s=train.num_users * 2 / wall,
             instances_per_s=n * 2 / wall,
             ms_per_step=wall * 1e3 / (2 * steps),
@@ -1104,6 +1133,7 @@ def phase_kernel_scatter(torch, held, results):
             # written; its plain version and yardstick are library sorts
             results["scatter_plan"] = dict(
                 max_abs_err=0.0 if plan_equal else None, ms=row["plan_ms"],
+                device_ms=row["device_ms"]["plan"],
                 plain_ms=median_ms(lambda: P.scatter_plan_plain(idx, N)),
                 library_ms=row["torch_sort_ms"],
                 **bound(8.0 * Pn + 4.0 * Pn + 4.0 * (N + 1), 0.0))
@@ -1144,6 +1174,14 @@ def phase_kernel_gather(torch, results):
                    plain_ms=median_ms(lambda: P.gather_rows_mxu_plain(
                        table, idx)),
                    library_ms=median_ms(lambda: torch.index_select(
+                       table, 0, idx)),
+                   device_ms=device_ms(lambda: P.gather_rows_mxu(table,
+                                                                 idx)),
+                   library_device_ms=device_ms(lambda: torch.index_select(
+                       table, 0, idx)),
+                   host_us=_host_us(torch, lambda: P.gather_rows_mxu(table,
+                                                                     idx)),
+                   library_host_us=_host_us(torch, lambda: torch.index_select(
                        table, 0, idx)),
                    # the ids and the table read once, the rows written once
                    **bound(8.0 * Pn + 4.0 * N * C + 4.0 * Pn * C, 0.0))
@@ -1193,8 +1231,8 @@ def phase_train_fism(torch, tmp, held):
 
 def phase_train_fism_sparse(torch, held):
     """The same 10 epochs with dense_mode=False through SGDSolver.train:
-    the sparse step, its Q + bi and P sums in B8 (scatter_mode auto pins
-    "pallas" on CUDA). R@10 rises and lands within 0.15 of train_fism's."""
+    the sparse step, its Q + bi and P sums in B8 (scatter_mode "auto" runs
+    B8 on CUDA). R@10 rises and lands within 0.15 of train_fism's."""
     import dataclasses
 
     import cdae_tpu_torch.ops.pallas_kernels as P
@@ -1340,7 +1378,9 @@ def _warp_epochs(torch, held, epochs=2, data=None, **kw):
 
 
 MXU = dict(gather_mode="mxu", scatter_mode="pallas")
-NATIVE = dict(gather_mode="auto", scatter_mode="auto")
+# the native gather and index_add_ (scatter_mode "scatter": on the card
+# every other mode, the default "auto" included, runs B8)
+INDEX_ADD = dict(gather_mode="auto", scatter_mode="scatter")
 
 
 def phase_train_warp_mxu(torch, held):
@@ -1362,23 +1402,30 @@ def phase_train_warp_mxu(torch, held):
 
 
 def phase_warp_mxu_vs_native(torch, held):
-    """The mxu route against the native gather and index_add_ (modes
-    "auto") from the same reset and draws. B9 is exact, so with the same
-    B8 scatter the native gather must give the same bits over 2 epochs.
-    B8 differs from index_add_ only in the order of its sums: one step (an
-    epoch of 8,000 instances) within 1e-4 relative. Over 2 epochs WARP's
-    violator test and try counts turn rounding differences into other
-    picks, so the native route differs from itself between runs
-    (index_add_'s atomics): the 2-epoch distance to the native route and
-    that run-to-run spread are printed for the record and gate nothing."""
+    """The mxu route against the native gather from the same reset and
+    draws. B9 is exact, so with the same B8 scatter the native gather must
+    give the same bits over 2 epochs. The default route (modes "auto": the
+    native gather and B8) must give the same bits on two runs, and the
+    mxu route's. B8 differs from index_add_ (scatter_mode "scatter") only
+    in the order of its sums: one step (an epoch of 8,000 instances)
+    within 1e-4 relative. Over 2 epochs WARP's violator test and try
+    counts turn rounding differences into other picks, so the index_add_
+    route differs from itself between runs (its atomics): its 2-epoch
+    distance to the mxu route and its run-to-run spread are printed for the
+    record and gate nothing."""
     from cdae_tpu_torch.data.dataset import Interactions
 
     mxu = held["warp_mxu"]
     _, same = _warp_epochs(torch, held, gather_mode="auto",
                            scatter_mode="pallas")
     bit_equal = all(torch.equal(mxu[k], same.params[k]) for k in mxu)
-    _, native = _warp_epochs(torch, held, **NATIVE)
-    _, native2 = _warp_epochs(torch, held, **NATIVE)
+    dmodel, default = _warp_epochs(torch, held)
+    _, default2 = _warp_epochs(torch, held)
+    default_repeats = all(torch.equal(default.params[k], default2.params[k])
+                          for k in mxu)
+    default_is_mxu = all(torch.equal(mxu[k], default.params[k]) for k in mxu)
+    _, native = _warp_epochs(torch, held, **INDEX_ADD)
+    _, native2 = _warp_epochs(torch, held, **INDEX_ADD)
     rel = _rel_diff(torch, mxu, native.params)
     spread = _rel_diff(torch, native2.params, native.params)
     train = held["ml1m"][1][0]
@@ -1389,11 +1436,16 @@ def phase_warp_mxu_vs_native(torch, held):
     rel1 = _rel_diff(torch,
                      _warp_epochs(torch, held, 1, one_step, **MXU)[1].params,
                      _warp_epochs(torch, held, 1, one_step,
-                                  **NATIVE)[1].params)
+                                  **INDEX_ADD)[1].params)
     return dict(phase="warp_mxu_vs_native", epochs=2,
-                bit_equal_same_scatter=bit_equal, rel_diff_one_step=rel1,
-                rel_diff=rel, native_run_to_run=spread, tol=ROUTE_REL_TOL,
-                ok=bit_equal and rel1 <= ROUTE_REL_TOL)
+                default_scatter_mode=dmodel.cfg.scatter_mode,
+                bit_equal_same_scatter=bit_equal,
+                default_route_bit_equal_run_to_run=default_repeats,
+                default_route_bit_equal_mxu=default_is_mxu,
+                rel_diff_one_step=rel1, rel_diff_index_add=rel,
+                index_add_run_to_run=spread, tol=ROUTE_REL_TOL,
+                ok=bit_equal and default_repeats and default_is_mxu
+                and rel1 <= ROUTE_REL_TOL)
 
 
 def main() -> int:
@@ -1519,11 +1571,14 @@ def main() -> int:
     for name, (_, source, replaces, paths) in KERNELS.items():
         r = results.get(name, {})
         by_path = launches.get(name, {})
+        dev_ms = r.get("device_ms")  # B8's is a dict: its span's
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces,
                           launches=by_path.get(paths[0], 0),
                           launches_by_path=by_path,
                           max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
+                          device_ms=dev_ms.get("span")
+                          if isinstance(dev_ms, dict) else dev_ms,
                           plain_ms=r.get("plain_ms"),
                           bound_ms=r.get("bound_ms"),
                           bound_by=r.get("bound_by"),

@@ -2,10 +2,12 @@
 PyTorch versions, on a GPU, at ragged shapes: the serving kernels (decode,
 fused top-k), the training kernels (hw_uniform and adagrad_update bit
 for bit, the fused step within f32 summation-order tolerance), the WARP
-violator kernel (counts and picks exact on dyadic inputs), and the row
-aggregation (B8: its plan equal to the library's stable sort; its reduce
-to summation-order tolerance and the same bits on every launch and over a
-shared plan) and row gather (B9, exact) with the paths that launch them.
+violator kernel (counts and picks exact on dyadic inputs, at the edges of
+its tiles and catalog splits), and the row aggregation (B8: its plan equal
+to the library's stable sort; its reduce to summation-order tolerance and
+the same bits on every launch and over a shared plan; every fixed-order
+scatter mode routed to it) and row gather (B9, exact at every width) with
+the paths that launch them, and two default-route WARP runs bit for bit.
 Every test is marked ``cuda`` and skips when torch.cuda.is_available() is
 False (the kernels have no CPU mode).
 
@@ -306,6 +308,34 @@ def test_warp_violator_select_kernel_rows_without_violators(cuda, rng_np):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("I", [1000, 12000])
+@pytest.mark.parametrize("D", [1, 10, 128])
+@pytest.mark.parametrize("nn", [1, 5, 8, 9, 32])
+def test_warp_violator_select_kernel_tile_edges(cuda, rng_np, I, D, nn):
+    """B = 45 and I off the kernel's tiles (32 or 16 rows a block,
+    128-column chunks; one catalog split at D = 1 and 10 with I = 1000,
+    several at D = 128 and at I = 12000, merged in the launch), D from 1 to
+    128, nn on both sides of the 8-slot variant; a fully rated row and a
+    row with no violator; both noises: counts and picks exactly the plain
+    version's."""
+    uv, iv, ib, thr, mask = _on(cuda, *_warp_inputs(rng_np, 45, I, D))
+    mask[3] = 1  # fully rated
+    thr[7] = float("inf")  # no violator
+    for noise in ("mshift", "hash"):
+        want = P.warp_violator_select_plain(99, uv, iv, ib, thr, mask, nn,
+                                            noise=noise)
+        before = P.warp_violator_select.launches
+        got = P.warp_violator_select(99, uv, iv, ib, thr, mask, nn,
+                                     noise=noise)
+        torch.cuda.synchronize()
+        assert P.warp_violator_select.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[0][3] == 0 and got[0][7] == 0
+        assert not got[1][3].any() and not got[1][7].any()
+        assert (got[0] > 0).sum() >= 40
+
+
+@pytest.mark.cuda
 def test_warp_violator_select_kernel_uniformity(cuda):
     """tests/test_pallas.py's chi-square of the mshift picks (every item a
     violator), on the kernel: pooled over 8 seeds, bound 330 at dof 255."""
@@ -461,6 +491,85 @@ def test_gather_rows_kernel_is_exact(cuda, rng_np, Pn, N, C):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 11, 64])
+@pytest.mark.parametrize("Pn", [0, 1, 63, 65, 1000])
+def test_gather_rows_kernel_widths(cuda, rng_np, C, Pn):
+    """B9 at widths whose 16-byte output quads span rows (C = 1, 2, 3,
+    11) or lie in one (C = 4, 64), P off the 64-row block, ids out of
+    range: exact, zero rows where out of range."""
+    N = 300
+    table = torch.from_numpy(rng_np.standard_normal((N, C))
+                             .astype(np.float32)).to(cuda)
+    idx, _ = _agg_inputs(rng_np, Pn, N, 1)
+    idx = torch.from_numpy(idx).to(cuda)
+    before = P.gather_rows_mxu.launches
+    got = P.gather_rows_mxu(table, idx)
+    torch.cuda.synchronize()
+    assert P.gather_rows_mxu.launches == before + (1 if Pn > 0 else 0)
+    assert tuple(got.shape) == (Pn, C)
+    assert torch.equal(got, P.gather_rows_mxu_plain(table, idx))
+    assert not got[(idx < 0) | (idx >= N)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["auto", "matmul", "factored",
+                                  "factored_bf16", "sort", "pallas",
+                                  "pallas_bf16", "scatter"])
+def test_scatter_add_rows_modes_on_the_card(cuda, rng_np, mode):
+    """On CUDA tensors every fixed-order mode runs B8 (one plan, one
+    reduce, the same bits on a second call) within its plain version's
+    tolerance; "scatter" stays one index_add and launches no B8."""
+    from cdae_tpu_torch.ops.scatter import row_plan, scatter_add_rows
+
+    idx, vals = _on(cuda, *_agg_inputs(rng_np, 5000, 301, 11))
+    base = torch.from_numpy(rng_np.standard_normal((301, 11))
+                            .astype(np.float32)).to(cuda)
+    counts = (P.scatter_plan.launches, P.scatter_matmul.launches)
+    plan = row_plan(idx, 301, mode)
+    got = scatter_add_rows(base, idx, vals, mode=mode, plan=plan)
+    again = scatter_add_rows(base, idx, vals, mode=mode, plan=plan)
+    torch.cuda.synchronize()
+    b8 = mode != "scatter"
+    assert (plan is not None) == b8
+    assert P.scatter_plan.launches == counts[0] + b8
+    assert P.scatter_matmul.launches == counts[1] + 2 * b8
+    want = base + P.scatter_matmul_plain(idx, vals, 301,
+                                         bf16=mode.endswith("bf16"))
+    scale = max(float(want.abs().max()), 1.0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
+    if b8:
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_warp_default_route_is_bit_reproducible(cuda):
+    """Two 2-epoch WARP runs on the default route (B7, and scatter_mode
+    "auto", which runs B8) from one seed give the same bits: the card
+    sums every row in a fixed order, so a resumed run replays the
+    unbroken one."""
+    from cdae_tpu_torch.data.synthetic import lowrank_interactions
+    from cdae_tpu_torch.models.mf import WARP, MFConfig
+
+    data = lowrank_interactions(300, 500, 30, seed=3)
+
+    def run():
+        model = WARP(MFConfig(num_dim=8, batch_size=512, loss="HINGE",
+                              beta=0.0, lambda_=0.1), device="cuda")
+        assert model.cfg.scatter_mode == "auto" and model.cfg.use_pallas
+        state = model.reset(data, seed=1)
+        before = P.scatter_matmul.launches
+        for _ in range(2):
+            model.train_one_iteration(state, 5)
+        torch.cuda.synchronize()
+        return state.params, P.scatter_matmul.launches - before
+
+    (a, na), (b, nb) = run(), run()
+    assert na == nb == 2 * 2 * -(-len(data) // 512)  # items, users
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
 def test_row_kernels_reject_bad_inputs(cuda):
     v = torch.ones((4, 3), device=cuda)
     with pytest.raises(TypeError):
@@ -476,10 +585,9 @@ def test_row_kernels_reject_bad_inputs(cuda):
 
 @pytest.mark.cuda
 def test_cuda_paths_launch_the_row_kernels(cuda, rng_np):
-    """scatter_add_rows(mode="pallas"), a FISM sparse step (auto pins
-    pallas on CUDA) and a WARP step with gather_mode="mxu" on CUDA tensors
-    raise the kernels' counters: the CUDA path never takes a plain
-    version."""
+    """scatter_add_rows(mode="pallas"), a FISM sparse step (auto runs B8
+    on CUDA) and a WARP step with gather_mode="mxu" on CUDA tensors raise
+    the kernels' counters: the CUDA path never takes a plain version."""
     from cdae_tpu_torch.data.synthetic import lowrank_interactions
     from cdae_tpu_torch.models.fism import FISM, FISMConfig
     from cdae_tpu_torch.models.mf import WARP, MFConfig
@@ -495,7 +603,7 @@ def test_cuda_paths_launch_the_row_kernels(cuda, rng_np):
     data = lowrank_interactions(60, 80, 10, seed=3)
     model = FISM(FISMConfig(num_dim=6, num_neg=2, batch_size=16,
                             dense_mode=False), device="cuda")
-    assert model.cfg.scatter_mode == "pallas"
+    assert model.cfg.scatter_mode == "auto"
     state = model.reset(data, seed=1)
     counts = (P.scatter_matmul.launches, P.adagrad_update.launches,
               P.scatter_plan.launches)

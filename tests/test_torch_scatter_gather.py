@@ -172,16 +172,70 @@ def test_scatter_matmul_plan_drops_every_id_out_of_range(rng_np):
         assert tuple(got.shape) == (7,) + shape[1:] and not got.any()
 
 
-@pytest.mark.parametrize("mode", ["pallas", "pallas_bf16", "scatter"])
+@pytest.mark.parametrize("mode", ["pallas", "pallas_bf16", "scatter", "auto",
+                                  "matmul", "factored", "factored_bf16",
+                                  "sort"])
 def test_row_plan_only_for_the_kernel_modes(mode):
+    """The modes that run B8 get a plan: the pallas modes on every device,
+    and on a CUDA device every fixed-order mode (all but "scatter", the
+    native scatter, which stays one index_add). On the CPU the others stay
+    index_add and get none; a plan gives the same sums as none."""
+    assert tscatter.runs_b8(mode, torch.device("cuda")) == (mode != "scatter")
+    kernel_mode = mode in ("pallas", "pallas_bf16")
+    assert tscatter.runs_b8(mode, torch.device("cpu")) == kernel_mode
     idx = torch.tensor([3, 0, 3, 5])
     plan = tscatter.row_plan(idx, 4, mode)
-    assert (plan is None) == (mode == "scatter")
+    assert (plan is None) == (not kernel_mode)
     base = torch.ones((4, 2))
     vals = torch.arange(8, dtype=torch.float32).reshape(4, 2)
     assert torch.equal(
         tscatter.scatter_add_rows(base, idx, vals, mode=mode, plan=plan),
         tscatter.scatter_add_rows(base, idx, vals, mode=mode))
+
+
+def _scatter_add_rows_before_card_routing(base, idx, vals, mode):
+    """What scatter_add_rows computed on the CPU before the fixed-order
+    modes were routed to B8 on the card: the pallas modes B8's plain
+    version added to base, every other mode one index_add into base."""
+    n = base.shape[0]
+    idx = idx.reshape(-1).long()
+    if mode in ("pallas", "pallas_bf16"):
+        agg = TP.scatter_matmul_plain(idx, vals.to(torch.float32), n,
+                                      bf16=mode == "pallas_bf16")
+        return (base + agg).to(base.dtype)
+    valid = (idx >= 0) & (idx < n)
+    if mode == "factored_bf16":
+        vals = vals.to(torch.bfloat16).to(base.dtype)
+    keep = valid.reshape((-1,) + (1,) * (vals.dim() - 1))
+    vals = torch.where(keep, vals.to(base.dtype), 0.0)
+    return base.index_add(0, torch.where(valid, idx, 0), vals)
+
+
+@pytest.mark.parametrize("mode", tscatter.MODES)
+@pytest.mark.parametrize("width", [None, 11])
+def test_scatter_add_rows_on_the_cpu_is_unchanged_and_matches_cdae_tpu(
+        rng_np, mode, width):
+    """On the CPU every mode computes what it computed before the card
+    routing, bit for bit, and agrees with cdae_tpu's same mode to 1e-5
+    (f32 sums in another order; the bf16 modes round the same
+    contributions). Ids past N count for nothing; negative ids are left out
+    of "scatter", whose negative ids wrap in jax."""
+    N, Pn = 41, 900
+    shape = (Pn,) if width is None else (Pn, width)
+    vals = rng_np.standard_normal(shape).astype(np.float32)
+    base = rng_np.standard_normal((N,) + shape[1:]).astype(np.float32)
+    idx = _ids(rng_np, Pn, N)
+    if mode == "scatter":
+        idx = np.where(idx < 0, N, idx).astype(np.int32)
+    args = (torch.from_numpy(base), torch.from_numpy(idx),
+            torch.from_numpy(vals))
+    got = tscatter.scatter_add_rows(*args, mode=mode)
+    assert torch.equal(got, _scatter_add_rows_before_card_routing(*args,
+                                                                  mode))
+    want = jscatter.scatter_add_rows(jnp.asarray(base), jnp.asarray(idx),
+                                     jnp.asarray(vals), mode=mode)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
 
 
 # ------------------------------------------------------------------- B9 ----
@@ -346,6 +400,42 @@ def test_warp_step_with_b8_b9_matches_native_and_cdae_tpu(warp_pair,
         if scatter_mode == "pallas":
             np.testing.assert_allclose(got[k].numpy(), native[k].numpy(),
                                        rtol=1e-6, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("route", ["cpu", "as_on_cuda"])
+def test_warp_step_auto_equals_pallas(warp_pair, monkeypatch, route):
+    """A WARP step with the default scatter_mode="auto" equals one with
+    "pallas" on the same draws, bit for bit: on the CPU both sum in
+    ascending p; routed as on a CUDA device ("as_on_cuda": runs_b8 sees a
+    card), auto builds B8's two plans and runs B8 (its plain version
+    here), as "pallas" does."""
+    asked = []
+    if route == "as_on_cuda":
+        monkeypatch.setattr(tscatter, "runs_b8",
+                            lambda mode, device: mode != "scatter")
+        real_plan = tscatter.scatter_plan
+        monkeypatch.setattr(tscatter, "scatter_plan",
+                            lambda *a: asked.append(a) or real_plan(*a))
+    rng = np.random.default_rng(5)
+    _, js, _, _ = _warp(warp_pair, use_pallas=True)
+    users, items, _ = js.aux["coo"]
+    sel = rng.integers(0, len(users), B)
+    w = np.ones(B, np.float32)
+    w[-3:] = 0.0
+    u = torch.from_numpy(users[sel]).long()
+    targs = (u, torch.from_numpy(items[sel]).long(), torch.from_numpy(w),
+             torch.from_numpy(js.padded.lengths[users[sel]]), (0, 0))
+    draws = dict(sel_seed=4321, u1=torch.from_numpy(
+        rng.uniform(1e-7, 1.0, (B, NN)).astype(np.float32)))
+    out = {}
+    for mode in ("auto", "pallas"):
+        _, _, tm, ts = _warp(warp_pair, use_pallas=True, scatter_mode=mode)
+        out[mode] = tmf.WARP._dense_path(
+            ts.params, *targs, tm._epoch_extras(ts)[0][u], cfg=tm.cfg,
+            loss=tm.loss, **draws)
+    assert len(asked) == (4 if route == "as_on_cuda" else 0)
+    for k in out["pallas"]:
+        assert torch.equal(out["auto"][k], out["pallas"][k]), k
 
 
 def test_params_from_numpy_owns_its_memory():
