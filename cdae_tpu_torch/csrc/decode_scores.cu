@@ -10,11 +10,8 @@
 // (1024 x 3706: 0.0048 ms); at D = 200 the operations do (1024 x 20000:
 // 0.0497 ms).
 //
-// Arithmetic: 3xTF32. Each f32 operand x is split into a TF32 part
-// hi = rna(x) and a TF32 remainder lo = rna(x - hi); the tensor cores add
-// lo*hi + hi*lo + hi*hi into f32 accumulators (the small terms first), which
-// keeps f32-level accuracy (the dropped lo*lo term is ~2^-22 of each
-// product) at three tensor-core products per f32 one.
+// Arithmetic: 3xTF32 (mma_tf32.cuh): three tensor-core products per f32
+// one, at f32-level accuracy.
 //
 // Design: mma.sync.m16n8k8 (row.col: z and W are both row-major with D
 // contiguous, i.e. K-major, as the instruction takes them), not wgmma. One
@@ -37,53 +34,19 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "mma_tf32.cuh"
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int kTileB = 128, kTileI = 128;
 constexpr int kThreads = 256;
 constexpr int kWarpB = 64, kWarpI = 32;  // 2 x 4 warps over the tile
 constexpr int kMt = kWarpB / 16, kNt = kWarpI / 8;
-constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// copy 4 * kVec bytes global -> shared, zero-filling when !valid
-template <int kVec>
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
-                                           bool valid) {
-  const int bytes = valid ? 4 * kVec : 0;
-  if constexpr (kVec == 4) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(bytes));
-  } else if constexpr (kVec == 2) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(bytes));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(bytes));
-  }
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  const float rest = __fsub_rn(x, __uint_as_float(hi));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using cdae::copy_async;
+using cdae::mma_tf32;
+using cdae::split_tf32;
 
 // D staged kChunk at a time in kStages shared buffers of kChunk + 4
 // floats a row (the padding puts the eight rows a fragment reads on
@@ -143,7 +106,7 @@ decode_scores_kernel(const float* __restrict__ z, const float* __restrict__ W,
   auto stage_in = [&](int s, int c) {
     load_chunk<kVec, kTileB, kChunk>(zs(s), z, b0, B, c * kChunk, D);
     load_chunk<kVec, kTileI, kChunk>(ws(s), W, i0, I, c * kChunk, D);
-    asm volatile("cp.async.commit_group;\n" ::);
+    cdae::cp_async_commit();
   };
 
   float acc[kMt][kNt][4];
@@ -164,12 +127,12 @@ decode_scores_kernel(const float* __restrict__ z, const float* __restrict__ W,
     const int s = kStages > 1 ? c & 1 : 0;
     if constexpr (kStages == 1) {  // one chunk holds all of D: one copy
       stage_in(0, c);
-      asm volatile("cp.async.wait_group 0;\n" ::);
+      cdae::cp_async_wait<0>();
     } else if (c + 1 < chunks) {  // the next chunk's copy overlaps this one
       stage_in(s ^ 1, c + 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
+      cdae::cp_async_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+      cdae::cp_async_wait<0>();
     }
     __syncthreads();
     const float* zc = zs(s);
@@ -250,57 +213,43 @@ decode_scores_kernel(const float* __restrict__ z, const float* __restrict__ W,
 }
 
 template <int kVec, int kChunk, int kStages>
-void launch(const float* z, const float* W, const float* bp, float* out,
-            int B, int I, int D, cudaStream_t s) {
+cudaError_t launch(const float* z, const float* W, const float* bp,
+                   float* out, int B, int I, int D, cudaStream_t s) {
   constexpr int kSmem = Stages<kChunk, kStages>::kSmemBytes;
   auto* kernel = decode_scores_kernel<kVec, kChunk, kStages>;
-  // above the default dynamic limit of 48 KB: raised once for each device
-  // (a driver call on every launch would cost host time; setting it twice
-  // from two threads is harmless)
-  static bool raised[kMaxDevices] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= kMaxDevices || !raised[dev]) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kSmem);
-    if (dev < kMaxDevices) raised[dev] = true;
-  }
+  static cdae::SmemLimit limit;  // above the default 48 KB
+  const cudaError_t err = limit.raise(kernel, kSmem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((I + kTileI - 1) / kTileI, (B + kTileB - 1) / kTileB);
   kernel<<<grid, kThreads, kSmem, s>>>(z, W, bp, out, B, I, D);
+  return cudaGetLastError();
 }
 
 // D <= 64: all of D in one copy (one wait on memory a block, not one a
 // 16-wide chunk); longer rows, and 4-byte copies (whose 64-wide chunk
 // would take 32 copies a thread and spill), 16-wide chunks, double-buffered
 template <int kVec>
-void launch_d(const float* z, const float* W, const float* bp, float* out,
-              int B, int I, int D, cudaStream_t s) {
+cudaError_t launch_d(const float* z, const float* W, const float* bp,
+                     float* out, int B, int I, int D, cudaStream_t s) {
   if constexpr (kVec > 1) {
-    if (D <= 64) {
-      launch<kVec, 64, 1>(z, W, bp, out, B, I, D, s);
-      return;
-    }
+    if (D <= 64) return launch<kVec, 64, 1>(z, W, bp, out, B, I, D, s);
   }
-  launch<kVec, 16, 2>(z, W, bp, out, B, I, D, s);
+  return launch<kVec, 16, 2>(z, W, bp, out, B, I, D, s);
 }
 
 }  // namespace
 
 // ``vec`` (4, 2 or 1): floats a copy moves -- D % vec == 0 and z, W
-// 4 * vec-byte aligned. Launches on ``stream`` and returns
-// cudaGetLastError() (0 = launched).
+// 4 * vec-byte aligned. Launches on ``stream`` and returns the launch's
+// cudaError_t (0 = launched).
 extern "C" int cdae_decode_scores(const float* z, const float* W,
                                   const float* bp, float* out, int B, int I,
                                   int D, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    launch_d<4>(z, W, bp, out, B, I, D, s);
-  } else if (vec == 2) {
-    launch_d<2>(z, W, bp, out, B, I, D, s);
-  } else {
-    launch_d<1>(z, W, bp, out, B, I, D, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = vec == 4   ? launch_d<4>(z, W, bp, out, B, I, D, s)
+                          : vec == 2 ? launch_d<2>(z, W, bp, out, B, I, D, s)
+                                     : launch_d<1>(z, W, bp, out, B, I, D, s);
+  return static_cast<int>(err);
 }
 
 // Text of a CUDA error code, for the Python wrappers' messages.

@@ -54,6 +54,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int kWarps = 32;
@@ -65,7 +67,6 @@ constexpr int kMaxChunks = 63;       // per split: lane index < 252, 8 bits
 constexpr int kAhead = 2;            // chunks of mask words in flight
 // Hopper's opt-in limit of 227 KB a block, less 1 KB for the static flag
 constexpr int kSmemMax = 232448 - 1024;
-constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
 // cdae_tpu's constants: C1 multiplies the column, C2 the row
@@ -386,20 +387,10 @@ cudaError_t launch_select(uint32_t seed, const float* uv, const float* iv,
                           int B, int I, int D, int nn, int S, int per_split,
                           cudaStream_t s) {
   auto* kernel = warp_select_kernel<TR, kMaxNN, kExact, NOISE>;
-  // above the default dynamic limit of 48 KB: raised once for each device
-  // (setting it twice from two threads is harmless)
-  static bool raised[kMaxDevices] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= kMaxDevices || !raised[dev]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // reported here; not left for the next launch
-      return err;
-    }
-    if (dev < kMaxDevices) raised[dev] = true;
-  }
+  static cdae::SmemLimit limit;  // above the default 48 KB
+  if (const cudaError_t err = limit.raise(kernel, kSmemMax);
+      err != cudaSuccess)
+    return err;
   constexpr int kRows = kWarps * TR;
   const int row_blocks = (B + kRows - 1) / kRows;
   if (S > 1) {

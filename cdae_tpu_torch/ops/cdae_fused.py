@@ -2,7 +2,8 @@
 
 ``cdae_dense_step_fused`` runs one whole tied-decoder dense step --
 corrupt, encode, activate, draw negatives, decode, loss gradient, table
-gradients, AdaGrad on W and b' -- in the kernels of csrc/cdae_fused.cu, with
+gradients, AdaGrad on W and b' -- in the five launches of
+csrc/cdae_fused.cu (its products on the tensor cores in 3xTF32), with
 no (B, I) f32 slab in device memory: the masks are regenerated from
 (seed, row, col) by the hash of ``hw_uniform`` (draw 0: corruption, draw 1:
 negatives), so the unfused step with ``fast_rng`` draws the very same ones.
@@ -36,9 +37,11 @@ _LOSSES = {
     LossType.LOG: 3, LossType.LOGM: 4, LossType.HINGE: 5,
     LossType.SQUARED_HINGE: 6,
 }
-_TILE_U = 32  # users per tile in csrc/cdae_fused.cu
-_CHUNK_I = 32  # items per chunk
-_MAX_D = 256  # accumulators per thread along D cap the width
+_TILE_U = 64  # users per encode / decode tile in csrc/cdae_fused.cu
+_CHUNK_I = 32  # items per chunk, and per grads block
+_USPLIT = 64  # a grads user split is whole 64-user chunks
+_MAX_D = 256  # accumulators per warp along D cap the width
+_WAVES = 2  # blocks per SM each grid aims at
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                 torch.Tensor]
@@ -62,6 +65,25 @@ def _act_grad(z: torch.Tensor, act: str) -> torch.Tensor:
     if act == "tanh":
         return 1.0 - z * z
     return z - z * z
+
+
+def fused_step_grid(B: int, I: int, num_sms: int) -> Tuple[int, int, int,
+                                                            int]:
+    """(splits, per_split, usplits, per_usplit) of csrc/cdae_fused.cu's
+    grids for a (B, I) batch on a card of ``num_sms`` SMs. The encode and
+    decode grids are (user tiles of 64) x (catalog splits of whole 32-item
+    chunks); the grads grid is (item tiles of 32) x (user splits of whole
+    64-user chunks). Each aims at about _WAVES blocks an SM without going
+    over, and every split is non-empty."""
+    user_tiles = _cdiv(B, _TILE_U)
+    chunks = _cdiv(I, _CHUNK_I)
+    splits = max(1, min(chunks, _WAVES * num_sms // user_tiles))
+    per_split = _cdiv(chunks, splits) * _CHUNK_I
+    item_tiles = _cdiv(I, _CHUNK_I)
+    user_chunks = _cdiv(B, _USPLIT)
+    usplits = max(1, min(user_chunks, _WAVES * num_sms // item_tiles))
+    per_usplit = _cdiv(user_chunks, usplits) * _USPLIT
+    return _cdiv(I, per_split), per_split, _cdiv(B, per_usplit), per_usplit
 
 
 def cdae_dense_step_fused_plain(
@@ -153,27 +175,28 @@ def cdae_dense_step_fused(
     hg = torch.empty((B, D), dtype=f32, device=dev)
     if B == 0 or I == 0:
         return W, W_ag, b_prime, bp_ag, hg.zero_()
-    # catalog splits: enough (user tile x split) blocks for ~4 per SM
-    user_tiles = _cdiv(B, _TILE_U)
-    chunks = _cdiv(I, _CHUNK_I)
-    splits = max(1, min(chunks, _cdiv(4 * _num_sms(dev.index or 0),
-                                      user_tiles)))
-    per_split = _cdiv(chunks, splits) * _CHUNK_I
-    splits = _cdiv(I, per_split)
+    splits, per_split, usplits, per_usplit = fused_step_grid(
+        B, I, _num_sms(dev.index or 0))
     z = torch.empty((B, D), dtype=f32, device=dev)
+    hs = torch.empty((B, D), dtype=f32, device=dev)
     part_h = torch.empty((splits, B, D), dtype=f32, device=dev)
     part_hg = torch.empty((splits, B, D), dtype=f32, device=dev)
-    part_dbp = torch.empty((user_tiles, I), dtype=f32, device=dev)
-    part_tch = torch.empty((user_tiles, I), dtype=f32, device=dev)
+    part_dbp = torch.empty((_cdiv(B, _TILE_U), I), dtype=f32, device=dev)
+    part_tch = torch.empty((_cdiv(B, _TILE_U), I), dtype=f32, device=dev)
+    part_dw = torch.empty((usplits, I, D), dtype=f32, device=dev)
+    done = torch.empty(_cdiv(I, _CHUNK_I), dtype=torch.int32, device=dev)
+    # 16-byte copies of W, z and hs rows where D and W's start allow
+    vec = 4 if D % 4 == 0 and W.data_ptr() % 16 == 0 else 1
     seed32 = ((int(seed) + 2**31) & 0xFFFFFFFF) - 2**31  # as a C int
     rc = cuda_lib.lib().cdae_fused_step(
         rows_int8.data_ptr(), w_user.data_ptr(), p_neg.data_ptr(),
         h_bias.data_ptr(), W.data_ptr(), W_ag.data_ptr(), b_prime.data_ptr(),
-        bp_ag.data_ptr(), hg.data_ptr(), z.data_ptr(), part_h.data_ptr(),
-        part_hg.data_ptr(), part_dbp.data_ptr(), part_tch.data_ptr(),
+        bp_ag.data_ptr(), hg.data_ptr(), hs.data_ptr(), z.data_ptr(),
+        part_h.data_ptr(), part_hg.data_ptr(), part_dbp.data_ptr(),
+        part_tch.data_ptr(), part_dw.data_ptr(), done.data_ptr(),
         B, I, D, seed32, float(q), float(scale), float(lam), float(lr),
         float(beta), int(bool(use_ada)), _ACTS[act], loss, splits, per_split,
-        _stream(dev),
+        usplits, per_usplit, vec, _stream(dev),
     )
     cuda_lib.check(rc, "cdae_dense_step_fused")
     cdae_dense_step_fused.launches += 1

@@ -214,6 +214,23 @@ def _check_k(k: int) -> None:
                          f"{_MAX_K}")
 
 
+_TOPK_TILE_U = 128  # users per block of csrc/fused_topk.cu
+_TOPK_TILE_I = 128  # catalog items per tile
+_TOPK_WAVES = 2  # blocks per SM the grid aims at (two fit at D <= 64)
+
+
+def fused_topk_grid(B: int, I: int, num_sms: int) -> Tuple[int, int]:
+    """(splits, items_per_split) of csrc/fused_topk.cu's grid for B users
+    and I items on a card of ``num_sms`` SMs: the catalog is cut into
+    splits of whole 128-item tiles so that (user tiles of 128) x (splits)
+    gives about _TOPK_WAVES blocks an SM; every split is non-empty."""
+    tiles = _cdiv(I, _TOPK_TILE_I)
+    user_tiles = _cdiv(B, _TOPK_TILE_U)
+    splits = max(1, min(tiles, _cdiv(_TOPK_WAVES * num_sms, user_tiles)))
+    per_split = _cdiv(tiles, splits) * _TOPK_TILE_I
+    return _cdiv(I, per_split), per_split
+
+
 def _fused_topk_launch(z, W, b_prime, rated, k: int, csr: bool):
     """Launch csrc/fused_topk.cu on CUDA tensors -> (ids, vals) with empty
     slots as (-inf, I). ``rated``: (B, L) sorted int32 rows if ``csr``,
@@ -232,22 +249,25 @@ def _fused_topk_launch(z, W, b_prime, rated, k: int, csr: bool):
     else:
         _require(rated, "rated_rows", torch.int8, (B, I), dev)
         entry, extra = "cdae_fused_topk_dense", ()
-    out_v = torch.full((B, k), float("-inf"), dtype=torch.float32, device=dev)
-    out_i = torch.full((B, k), I, dtype=torch.int32, device=dev)
     if B == 0 or I == 0:
-        return out_i, out_v
-    # enough (user tile x catalog split) blocks to give every SM ~8
-    tiles = _cdiv(I, 128)
-    splits = max(1, min(tiles, _cdiv(8 * _num_sms(dev.index or 0),
-                                     _cdiv(B, 32))))
-    per_split = _cdiv(tiles, splits) * 128
-    splits = _cdiv(I, per_split)
+        return (torch.full((B, k), I, dtype=torch.int32, device=dev),
+                torch.full((B, k), float("-inf"), dtype=torch.float32,
+                           device=dev))
+    # the merge kernel writes every slot
+    out_v = torch.empty((B, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    splits, per_split = fused_topk_grid(B, I, _num_sms(dev.index or 0))
     part_v = torch.empty((B, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((B, splits, k), dtype=torch.int32, device=dev)
+    # the widest copy of z and W rows (16, 8 or 4 bytes) that D and both
+    # pointers allow
+    zp, wp = z.data_ptr(), W.data_ptr()
+    vec = next(v for v in (4, 2, 1)
+               if D % v == 0 and zp % (4 * v) == 0 and wp % (4 * v) == 0)
     rc = getattr(cuda_lib.lib(), entry)(
-        z.data_ptr(), W.data_ptr(), b_prime.data_ptr(), rated.data_ptr(),
+        zp, wp, b_prime.data_ptr(), rated.data_ptr(),
         *extra, part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
-        out_i.data_ptr(), B, I, D, k, splits, per_split, _stream(dev),
+        out_i.data_ptr(), B, I, D, k, splits, per_split, vec, _stream(dev),
     )
     cuda_lib.check(rc, entry)
     return out_i, out_v

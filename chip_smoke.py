@@ -7,7 +7,9 @@ Phases, each printed as one JSON line:
   kernel  -- each kernel against its plain PyTorch version on the card, at
              the shapes its path gives it; error, median spans and device
              time (device_ms; beside the library call's where one exists),
-             for every kernel here and in the phases below
+             for every kernel here and in the phases below; the fused step
+             (B4) also the same bits on a second launch, and B4, B5 and B6
+             one call under torch.profiler (each launch's span)
   serving path (counts from 0 before slice, read after dense_1m):
     slice   -- ML-1M-scale CDAE serving at D=50 through the CLI --task test
                (dense_R encode + decode kernel + TOPN), checked against the
@@ -73,11 +75,13 @@ Phases, each printed as one JSON line:
              within 1e-4; the 2-epoch distance and that route's own
              run-to-run spread printed, not gated)
 Then the whole run's wall time, the kernel table (each kernel's launches
-from the path that owns it; B8's plan has a row of its own; bound_ms is
-the least time for the kernel's work at the card's published peaks: HBM
-bytes at 3.35 TB/s against 32-bit operations at 67 T/s, or, for B3, which
-multiplies on the tensor cores in 3xTF32, three TF32 products per f32 one
-at 495 T/s), the card's name and power limit, and, last, the ok line.
+from the path that owns it; B8's plan has a row of its own; a kernel timed
+at several shapes lists them all under ``shapes``; bound_ms is the least
+time for the kernel's work at the card's published peaks: HBM bytes at
+3.35 TB/s against 32-bit operations at 67 T/s, or, for B3, B4, B5 and B6,
+which multiply on the tensor cores in 3xTF32, three TF32 products per f32
+one at 495 T/s, with the f32 figure beside it as bound_f32_ms), the
+card's name and power limit, and, last, the ok line.
 Any failed phase makes the exit code 1 and leaves out the ok line. Without
 a CUDA GPU, or without the repository beside it, the script exits 2 and
 prints no result.
@@ -190,6 +194,26 @@ def read_counts(path: str, launches: dict, failed: list) -> None:
             failed.append(f"launches:{name}")
 
 
+# a row's shape keys and measurements, as the kernel table repeats them
+SHAPE_KEYS = ("B", "I", "D", "k", "nn", "shape", "case", "P", "N", "C")
+MEASURE_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "bound_f32_ms")
+
+
+def record(results, name, row) -> None:
+    """Keep a kernel's row: the first shape's is the kernel's own in the
+    table, and every shape's row is listed under it (``shapes``)."""
+    results.setdefault(name, row)
+    results.setdefault("_shapes", {}).setdefault(name, []).append(row)
+
+
+def shape_summary(row) -> dict:
+    out = {k: row[k] for k in SHAPE_KEYS + MEASURE_KEYS if k in row}
+    if isinstance(out.get("device_ms"), dict):  # B8's: its span's
+        out["device_ms"] = out["device_ms"].get("span")
+    return out
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -284,13 +308,12 @@ def phase_kernels(torch, P, results):
                    device_ms=device_ms(lambda: P.decode_scores(z, W, bp)),
                    library_device_ms=device_ms(
                        lambda: torch.addmm(bp, z, W.t())),
-                   # 3xTF32: three tensor-core products per f32 one
-                   **bound(4.0 * (B * D + I * D + I + B * I),
-                           3 * 2.0 * B * I * D, TF32_OPS_PER_S))
+                   **tf32_bound(4.0 * (B * D + I * D + I + B * I),
+                                2.0 * B * I * D))
         emit(row)
         if err > TOL:
             raise AssertionError(f"decode_scores error {err} > {TOL}")
-        results.setdefault("decode_scores", row)
+        record(results, "decode_scores", row)
 
     k = 10
     D = 50
@@ -302,8 +325,8 @@ def phase_kernels(torch, P, results):
     _check_topk(torch, results, "fused_topk_scores", B, I, D, k,
                 lambda kk: P.fused_topk_scores(z, W, bp, rows, k=kk),
                 lambda kk: P.fused_topk_scores_plain(z, W, bp, rows, k=kk),
-                bound(4.0 * (B * D + I * D + I) + B * I + 8.0 * B * k,
-                      2.0 * B * I * D))
+                tf32_bound(4.0 * (B * D + I * D + I) + B * I + 8.0 * B * k,
+                           2.0 * B * I * D))
     del rows
 
     # B6 fused_topk_scores_csr: sorted rated rows of 1 to 2048 items
@@ -318,8 +341,20 @@ def phase_kernels(torch, P, results):
                 lambda kk: P.fused_topk_scores_csr(z, W, bp, rated, k=kk),
                 lambda kk: P.fused_topk_scores_csr_plain(z, W, bp, rated,
                                                          k=kk),
-                bound(4.0 * (B * D + I * D + I + B * 2048) + 8.0 * B * k,
-                      2.0 * B * I * D))
+                tf32_bound(4.0 * (B * D + I * D + I + B * 2048)
+                           + 8.0 * B * k, 2.0 * B * I * D))
+
+
+def tf32_bound(nbytes: float, flops: float, other_ops: float = 0.0,
+               tf32_ops: float | None = None) -> dict:
+    """The bound of a kernel that multiplies in 3xTF32 on the tensor cores
+    (``tf32_ops`` at 495 T/s: by default three TF32 products per f32 one),
+    with the f32 figure (``flops`` and ``other_ops`` at 67 T/s) beside it,
+    as the bound of an f32 FMA kernel for the same work."""
+    if tf32_ops is None:
+        tf32_ops = 3 * flops
+    return dict(**bound(nbytes, tf32_ops, TF32_OPS_PER_S),
+                bound_f32_ms=bound(nbytes, flops + other_ops)["bound_ms"])
 
 
 def _check_topk(torch, results, name, B, I, D, k, kernel, plain, work):
@@ -333,13 +368,15 @@ def _check_topk(torch, results, name, B, I, D, k, kernel, plain, work):
                rows_with_other_ids=other,
                ms=median_ms(lambda: kernel(k), reps=3),
                device_ms=device_ms(lambda: kernel(k), reps=5),
+               # one call under torch.profiler: the tile kernel and merge
+               profile=_profile(torch, lambda: kernel(k)),
                plain_ms=median_ms(lambda: plain(k), reps=3),
                library_ms=None, **work)
     emit(row)
     if err > TOL or other:
         raise AssertionError(f"{name}: max_abs_err {err}, {other} rows with "
                              "other ids")
-    results[name] = row
+    record(results, name, row)
 
 
 def phase_train_kernels(torch, results):
@@ -374,7 +411,7 @@ def phase_train_kernels(torch, results):
                    **bound(4.0 * shape[0] * shape[1],
                            12.0 * shape[0] * shape[1]))
         emit(row)
-        results.setdefault("hw_uniform", row)
+        record(results, "hw_uniform", row)
         if not equal:
             bad.append(f"hw_uniform {shape}")
 
@@ -411,7 +448,7 @@ def phase_train_kernels(torch, results):
                    library_device_ms=device_ms(opt.step),
                    **bound(20.0 * n, 7.0 * n))
         emit(row)
-        results.setdefault("adagrad_update", row)
+        record(results, "adagrad_update", row)
         if rel > 1e-6:
             bad.append(f"adagrad_update {shape}")
 
@@ -440,6 +477,7 @@ def phase_train_kernels(torch, results):
                       bp_ag.to(dtype, copy=True), **kw)
 
         got = run(F.cdae_dense_step_fused)
+        again = run(F.cdae_dense_step_fused)  # the same bits: no atomics
         want = run(F.cdae_dense_step_fused_plain)
         ref64 = run(F.cdae_dense_step_fused_plain, torch.float64)
         torch.cuda.synchronize()
@@ -455,31 +493,43 @@ def phase_train_kernels(torch, results):
                              plain_vs_f64=(p.double() - r).abs().max()
                              .item())
             ok = ok and excess.item() <= 0.0
+        bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = ok and bit_equal
         args = [t.clone() for t in (W, W_ag, bp, bp_ag)]
+        nbytes = B * I + 4.0 * (2 * B + 2 * B * D) + 16.0 * (I * D + I)
         row = dict(phase="kernel", kernel="cdae_dense_step_fused", B=B, I=I,
                    D=D, rtol=FUSED_RTOL, outputs=per,
+                   bit_equal_relaunch=bit_equal,
                    max_abs_err=per["W"]["max_abs_err"], ok=ok,
                    ms=median_ms(lambda: F.cdae_dense_step_fused(
                        SEED, rows, w_user, p_neg, h_bias, *args, **kw)),
                    device_ms=device_ms(lambda: F.cdae_dense_step_fused(
                        SEED, rows, w_user, p_neg, h_bias, *args, **kw),
                        reps=10),
+                   # one step under torch.profiler: each launch's span
+                   profile=_profile(torch, lambda: F.cdae_dense_step_fused(
+                       SEED, rows, w_user, p_neg, h_bias, *args, **kw)),
                    plain_ms=median_ms(lambda: F.cdae_dense_step_fused_plain(
                        SEED, rows, w_user, p_neg, h_bias, *args, **kw)),
                    # no library call does a whole CDAE step; the work is
                    # five dense (B, I, D) products (encode, decode, the
-                   # hidden gradient, d_W's two) and two hash draws. The
-                   # kernel's grads launch recomputes the decode, a sixth
-                   # product that the step does not need: not counted
+                   # hidden gradient, d_W's two), on the tensor cores in
+                   # 3xTF32, and two hash draws. Three take three TF32
+                   # products each; encode and d_W's kept^T hs take two,
+                   # as their kept operand is exact in TF32: 13 TF32
+                   # products of 2*B*I*D. The kernel's grads launch
+                   # recomputes the decode, a sixth product that the step
+                   # does not need: not counted
                    library_ms=None,
-                   **bound(B * I + 4.0 * (2 * B + 2 * B * D)
-                           + 16.0 * (I * D + I),
-                           10.0 * B * I * D + 24.0 * B * I))
+                   # (the f32 figure also counts the hash draws, ~24
+                   # operations a cell, as an f32 FMA kernel's bound)
+                   **tf32_bound(nbytes, 10.0 * B * I * D, 24.0 * B * I,
+                                tf32_ops=26.0 * B * I * D))
         emit(row)
-        results.setdefault("cdae_dense_step_fused", row)
+        record(results, "cdae_dense_step_fused", row)
         if not ok:
             bad.append(f"cdae_dense_step_fused {(B, I, D)}")
-        del rows, got, want, ref64
+        del rows, got, again, want, ref64
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
@@ -818,7 +868,7 @@ def phase_kernel_warp(torch, results):
                            2.0 * B * I * D + 3.0 * B * I
                            + viol_total * (16.0 + 6.0 * nn)))
         emit(row)
-        results.setdefault("warp_violator_select", row)
+        record(results, "warp_violator_select", row)
         if not nviol_equal or j_rows_differ or not h_equal:
             bad.append(f"warp_violator_select {(B, I, D, nn)}")
         del args
@@ -1127,7 +1177,7 @@ def phase_kernel_scatter(torch, held, results):
             **bound(4.0 * vals.numel() + 8.0 * Pn + 4.0 * N * (C or 1),
                     float(vals.numel())))
         emit(row)
-        results.setdefault("scatter_matmul", row)
+        record(results, "scatter_matmul", row)
         if name == "fism_q_bi":
             # the plan's own row: the int64 ids read, order and offsets
             # written; its plain version and yardstick are library sorts
@@ -1186,7 +1236,7 @@ def phase_kernel_gather(torch, results):
                    # the ids and the table read once, the rows written once
                    **bound(8.0 * Pn + 4.0 * N * C + 4.0 * Pn * C, 0.0))
         emit(row)
-        results.setdefault("gather_rows_mxu", row)
+        record(results, "gather_rows_mxu", row)
         if not (exact and exact_oor and zero_rows):
             bad.append(f"gather_rows_mxu {name}")
     if bad:
@@ -1583,6 +1633,9 @@ def main() -> int:
                           bound_ms=r.get("bound_ms"),
                           bound_by=r.get("bound_by"),
                           library_ms=r.get("library_ms")))
+        shapes = results.get("_shapes", {}).get(name, [])
+        if len(shapes) > 1:
+            table[-1]["shapes"] = [shape_summary(row) for row in shapes]
     emit({"kernels": table})
     try:
         smi = subprocess.run(

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels of cdae_tpu_torch against their plain
 PyTorch versions, on a GPU, at ragged shapes: the serving kernels (decode,
-fused top-k), the training kernels (hw_uniform and adagrad_update bit
-for bit, the fused step within f32 summation-order tolerance), the WARP
+fused top-k at the edges of their tiles, equal scores included), the
+training kernels (hw_uniform and adagrad_update bit for bit, the fused
+step within f32 summation-order tolerance and bit-equal run to run), the WARP
 violator kernel (counts and picks exact on dyadic inputs, at the edges of
 its tiles and catalog splits), and the row aggregation (B8: its plan equal
 to the library's stable sort; its reduce to summation-order tolerance and
@@ -142,6 +143,81 @@ def test_fused_topk_kernel_fewer_than_k(cuda, rng_np):
     torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
 
 
+def _rated_sets(rng, B, I, L):
+    """Sorted rated ids per row: random rows of up to L items; row 0 rates
+    100 items inside the first 128-item tile (more than k in one tile), row
+    1 all but 3 items (fewer than k unrated), row 2 nothing."""
+    sets = [np.sort(rng.choice(I, int(rng.integers(1, min(L, I))),
+                               replace=False)) for _ in range(B)]
+    if B > 0:
+        sets[0] = np.arange(min(100, I))
+    if B > 1:
+        sets[1] = np.sort(rng.choice(I, max(I - 3, 0), replace=False))
+    if B > 2:
+        sets[2] = np.zeros(0, np.int64)
+    width = max(1, max(len(r) for r in sets))
+    rated = np.full((B, width), I, np.int32)
+    for b, r in enumerate(sets):
+        rated[b, :len(r)] = r
+    return rated
+
+
+def _both_topk(dev, z, W, bp, rated, K):
+    """(kernel, plain) of B5 and of B6 on the same rows."""
+    rows = _dense_rows(rated, W.shape[0])
+    zt, Wt, bpt, rt, rowst = _on(dev, z, W, bp, rated, rows)
+    out = []
+    for fn, plain, r in (
+            (P.fused_topk_scores, P.fused_topk_scores_plain, rowst),
+            (P.fused_topk_scores_csr, P.fused_topk_scores_csr_plain, rt)):
+        before = fn.launches
+        got = fn(zt, Wt, bpt, r, k=K)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        out.append((got, plain(zt, Wt, bpt, r, k=K)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,I,D,K", [
+    (130, 1000, 3, 1), (257, 5001, 9, 32), (130, 5001, 50, 10),
+    (129, 1000, 64, 32), (257, 1000, 50, 1), (300, 2000, 100, 10),
+    (70, 777, 200, 32), (1, 129, 64, 32), (3, 130, 65, 10),
+])
+def test_fused_topk_kernel_tile_edges(cuda, rng_np, B, I, D, K):
+    """B5 and B6 at the edges of their tiles: B off the 128-row user tile,
+    I off the 128-item tile, D from 3 to 200 (all of D staged once up to
+    64, 32-wide chunks above), k = 1 and 32; a row with 100 rated items in
+    one tile, one with 3 unrated items, one with none rated. Ids equal the
+    plain version's, scores to rtol 1e-5 and atol 1e-4 (f32-level error of
+    3xTF32 on N(0, 1) operands)."""
+    z, W, bp = _problem(rng_np, B, D, I)
+    rated = _rated_sets(rng_np, B, I, 300)
+    for got, want in _both_topk(cuda, z, W, bp, rated, K):
+        torch.testing.assert_close(got[0], want[0])
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 50, 100])
+@pytest.mark.parametrize("K", [1, 10, 32])
+def test_fused_topk_kernel_equal_scores_lower_id_wins(cuda, rng_np, D, K):
+    """Dyadic inputs (multiples of 1/64) whose W rows repeat five rows and
+    whose b' takes two values: scores are exact in every summation order,
+    and a fifth of each row's items tie at its best score. The kernel keeps
+    the lower ids on equal scores, exactly as the plain version."""
+    B, I = 130, 3001
+    base = np.round(rng_np.standard_normal((5, D)) * 16) / 64
+    W = base[rng_np.integers(0, 5, I)].astype(np.float32)
+    bp = (rng_np.integers(0, 2, I) / 64).astype(np.float32)
+    z = (np.round(rng_np.standard_normal((B, D)) * 16) / 64).astype(
+        np.float32)
+    rated = _rated_sets(rng_np, B, I, 50)
+    for got, want in _both_topk(cuda, z, W, bp, rated, K):
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_reject_bad_inputs(cuda, rng_np):
     z, W, bp = _on(cuda, *_problem(rng_np, 4, 8, 100))
@@ -232,6 +308,60 @@ def test_fused_step_kernel_matches_plain(cuda, rng_np, B, I, D, act, loss):
         # through AdaGrad's first step (lr / sqrt(1e-4) = 10x)
         atol = 1e-5 * max(1.0, float(w.abs().max()))
         torch.testing.assert_close(g, w, rtol=3e-4, atol=10 * atol, msg=name)
+
+
+def _fused_kw(act, loss, use_ada=True, beta=0.0):
+    return dict(q=0.5, scale=2.0, lam=0.01, lr=0.1, beta=beta,
+                use_ada=use_ada, act=act, loss_name=loss)
+
+
+def _check_fused_step(dev, ins, kw):
+    """The kernel against the plain version (1e-5 of each output's scale:
+    f32 sums in another order, carried through AdaGrad's first step, lr /
+    sqrt(1e-4) = 10x), and a second launch on the same inputs bit-equal."""
+    want = F.cdae_dense_step_fused_plain(77, *ins[:4],
+                                         *(t.clone() for t in ins[4:]), **kw)
+    before = F.cdae_dense_step_fused.launches
+    got = F.cdae_dense_step_fused(77, *ins[:4],
+                                  *(t.clone() for t in ins[4:]), **kw)
+    again = F.cdae_dense_step_fused(77, *ins[:4],
+                                    *(t.clone() for t in ins[4:]), **kw)
+    torch.cuda.synchronize()
+    assert F.cdae_dense_step_fused.launches == before + 2
+    for name, g, a, w in zip(("W", "W_ag", "b_prime", "bp_ag", "hg"), got,
+                             again, want):
+        assert torch.equal(g, a), name
+        atol = 1e-5 * max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g, w, rtol=3e-4, atol=10 * atol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [7, 50, 200, 256])
+@pytest.mark.parametrize("B,I", [(70, 333), (129, 1001)])
+def test_fused_step_kernel_tile_edges(cuda, rng_np, B, I, D):
+    """B4 at D from 7 to its limit of 256 (one to four d n-tiles a warp),
+    B off the 64-user tile and the 32-user chunk, I off the 32-item chunk,
+    w_user zero on about a tenth of the rows and on the last nine (a
+    wrapped last batch): within tolerance of the plain version and the
+    same bits on a second launch. beta = 1, as chip_smoke.py's B4 check:
+    with beta = 0 AdaGrad's first step divides by sqrt(1e-4) and turns the
+    f32 rounding of a near-zero gradient (both versions') into 1e-4."""
+    ins = _fused_inputs(cuda, rng_np, B, I, D)
+    ins[1][-9:] = 0.0  # a wrapped last batch
+    _check_fused_step(cuda, ins, _fused_kw("sigmoid", "SQUARE", beta=1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["sigmoid", "tanh", "linear"])
+@pytest.mark.parametrize("loss", ["SQUARE", "LOGISTIC", "CROSS_ENTROPY",
+                                  "LOG", "LOGM", "HINGE", "SQUARED_HINGE"])
+def test_fused_step_kernel_every_activation_and_loss(cuda, rng_np, act,
+                                                     loss):
+    """B4 with each activation and each loss (AdaGrad; SGD on the
+    linear activation), within tolerance of the plain version and the same
+    bits on a second launch."""
+    ins = _fused_inputs(cuda, rng_np, 45, 500, 50)
+    _check_fused_step(cuda, ins, _fused_kw(act, loss, act != "linear"))
 
 
 @pytest.mark.cuda

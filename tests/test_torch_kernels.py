@@ -211,3 +211,24 @@ def test_wrappers_route_only_cpu_to_plain(rng_np):
         P.decode_scores(z.to("meta"), W, bp)
     with pytest.raises(ValueError, match="meta"):
         P.fused_topk_scores(z.to("meta"), W, bp, rows)
+
+
+@pytest.mark.parametrize("B,I,sms", [
+    (1024, 1_000_000, 132), (256, 1_000_000, 132), (1, 1, 132),
+    (1024, 3706, 132), (20000, 1_000_000, 132), (129, 200, 8),
+    (70, 5000, 1), (5, 7, 132),
+])
+def test_fused_topk_grid(B, I, sms):
+    """The B5/B6 grid (user tiles of 128 x catalog splits of whole 128-item
+    tiles): every split non-empty, the splits cover the catalog, and about
+    two blocks an SM where the catalog has the tiles for it."""
+    splits, per_split = P.fused_topk_grid(B, I, sms)
+    assert per_split % 128 == 0 and per_split > 0
+    assert (splits - 1) * per_split < I <= splits * per_split
+    user_tiles = -(-B // 128)
+    tiles = -(-I // 128)
+    assert splits <= min(tiles, -(-2 * sms // user_tiles)) or splits == 1
+    if tiles >= 2 * sms:
+        assert user_tiles * splits >= 2 * sms - user_tiles
+    if (B, I, sms) == (1024, 1_000_000, 132):
+        assert (splits, per_split) == (33, 237 * 128)

@@ -208,3 +208,27 @@ def test_fused_model_epoch_routes_through_the_wrapper(monkeypatch):
     with pytest.warns(UserWarning, match="fused"):
         model.train_one_iteration(state, seed=3)
     assert len(calls) == 3
+
+
+@pytest.mark.parametrize("B,I,sms", [
+    (1024, 3706, 132), (1024, 20000, 132), (1, 5, 132), (37, 999, 132),
+    (8192, 3706, 132), (1024, 3706, 8), (70, 300, 1),
+])
+def test_fused_step_grid(B, I, sms):
+    """B4's grids: (user tiles of 64) x (catalog splits of whole 32-item
+    chunks) for encode and decode, (item tiles of 32) x (user splits of
+    whole 64-user chunks) for the grads; every split non-empty, the splits
+    cover the batch and the catalog, at most two blocks an SM where a
+    split can be cut, and at ML-1M's shape the grads fill a wave on 132
+    SMs (more than its 116 item tiles)."""
+    from cdae_tpu_torch.ops.cdae_fused import fused_step_grid
+
+    splits, per_split, usplits, per_usplit = fused_step_grid(B, I, sms)
+    assert per_split % 32 == 0 and per_usplit % 64 == 0
+    assert (splits - 1) * per_split < I <= splits * per_split
+    assert (usplits - 1) * per_usplit < B <= usplits * per_usplit
+    user_tiles, item_tiles = -(-B // 64), -(-I // 32)
+    assert splits == 1 or user_tiles * splits <= 2 * sms
+    assert usplits == 1 or item_tiles * usplits <= 2 * sms
+    if (B, I, sms) == (1024, 3706, 132):
+        assert item_tiles * usplits >= 132 and user_tiles * splits >= 132
