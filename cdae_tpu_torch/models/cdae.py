@@ -4,8 +4,9 @@ Port of cdae_tpu/models/cdae.py: the configuration, parameter reset, dense
 (full-catalog) training, the losses, the hidden encode and every way a batch
 of users is scored or ranked. With ``use_pallas`` on (the default on a CUDA
 device) training runs the hand-written kernels hw_uniform (the masks) and
-adagrad_update (the W, b', b sweep), or with ``fused_step=True`` the fused
-step of ops/cdae_fused.py; scoring runs the decode and fused top-k kernels.
+adagrad_update (the W, b', b sweep, one launch a step), or with
+``fused_step=True`` the fused step of ops/cdae_fused.py; scoring runs the
+decode and fused top-k kernels.
 
 Model math (as in cdae_tpu):
   h   = s * sum_{i in rated} W_i   (* U_u if linear_function)
@@ -70,6 +71,7 @@ from cdae_tpu_torch.ops.penalties import Penalty
 from cdae_tpu_torch.solver.optimizer import (
     ADAGRAD_INIT,
     dense_adagrad_step,
+    dense_adagrad_steps,
     row_adagrad_delta,
 )
 from cdae_tpu_torch.utils.random import step_seed
@@ -611,9 +613,9 @@ def _dense_train_step(
     """One full-catalog dense minibatch step: corrupt, encode ((B, I) x
     (I, D)), activate, draw Bernoulli negatives (expected count
     num_neg*|O_u| per user), decode, loss gradient, table gradients, then
-    AdaGrad. Updates ``params`` IN PLACE (W, b', b, V through
-    dense_adagrad_step -- the adagrad_update kernel when ``use_pallas`` is
-    on -- and the Wu / Uu rows) and returns it.
+    AdaGrad. Updates ``params`` IN PLACE (W, b', b, V in one
+    dense_adagrad_steps sweep -- one launch of the adagrad_update kernel
+    when ``use_pallas`` is on -- and the Wu / Uu rows) and returns it.
 
     ``u_corrupt`` / ``u_neg`` inject the corruption and negative uniforms;
     when absent they are drawn from ``seed`` (``_draw_uniforms``). With
@@ -682,21 +684,20 @@ def _dense_train_step(
                + lam * touches[:, None] * W)
     # Uu's gradient needs the pre-update W: take it before the sweep
     sum_kept_W = _mm(kept, W, cfg).to(dt) if cfg.linear_function else None
-
-    def dense_step(name, grad):
-        dense_adagrad_step(params[name], params[name + "_ag"], grad, lr,
-                           beta, cfg.using_adagrad, use_kernel)
+    dense = {"W": d_W, "b_prime": d_bp}
+    if cfg.asymmetric:
+        dense["V"] = d_V
+    dense["b"] = w_user.to(f32) @ hg + w_user.sum() * lam * params["b"]
+    # every dense grad is taken: one sweep (one kernel launch) for them all
+    dense_adagrad_steps(
+        [(params[name], params[name + "_ag"], g) for name, g in dense.items()],
+        lr, beta, cfg.using_adagrad, use_kernel)
 
     def row_step(name, grad_rows):
         row_adagrad_delta(params[name], params[name + "_ag"], uids,
                           grad_rows, w_user[:, None] > 0, lr, beta,
                           cfg.using_adagrad)
 
-    dense_step("W", d_W)
-    dense_step("b_prime", d_bp)
-    if cfg.asymmetric:
-        dense_step("V", d_V)
-    dense_step("b", w_user.to(f32) @ hg + w_user.sum() * lam * params["b"])
     if cfg.user_factor:
         row_step("Wu", (hg + lam * params["Wu"][uids]) * w_user[:, None])
     if cfg.linear_function:

@@ -57,7 +57,7 @@ from cdae_tpu_torch.ops.pallas_kernels import hw_uniform
 from cdae_tpu_torch.ops.penalties import Penalty
 from cdae_tpu_torch.ops.sampling import sample_unrated
 from cdae_tpu_torch.ops.scatter import row_plan, scatter_add_rows
-from cdae_tpu_torch.solver.optimizer import ADAGRAD_INIT, dense_adagrad_step
+from cdae_tpu_torch.solver.optimizer import ADAGRAD_INIT, dense_adagrad_steps
 from cdae_tpu_torch.utils.random import step_seed
 
 _MASK32 = 0xFFFFFFFF
@@ -295,12 +295,12 @@ def _refresh_x_rows(params, uids, items, mask_f, weight):
 
 def _fism_adagrad(params, grads, lr: float, cfg: FISMConfig):
     """AdaGrad without beta (ref fism.hpp:119-121: grad /= sqrt(acc)), in
-    place; the sweep is kernel B2 on a CUDA tensor, its plain version on a
-    CPU tensor."""
-    for name, g in grads.items():
-        dense_adagrad_step(params[name], params[name + "_ag"],
-                           g.contiguous(), lr, 0.0, cfg.using_adagrad,
-                           use_kernel=True)
+    place, over every table of ``grads``: one launch of kernel B2 on CUDA
+    tensors, its plain version on CPU tensors."""
+    dense_adagrad_steps(
+        [(params[name], params[name + "_ag"], g.contiguous())
+         for name, g in grads.items()],
+        lr, 0.0, cfg.using_adagrad, use_kernel=True)
     return params
 
 

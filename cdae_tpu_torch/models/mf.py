@@ -17,8 +17,8 @@ cnt ~ Geometric(p = |violators| / |unrated|) truncated at num_tries, and j
 uniform over the violators. With ``use_pallas`` on (the default on a CUDA
 device) the violator count and the picks come from the hand-written kernel
 ``warp_violator_select`` (kernel B7); with it off, from the full (B, I)
-scores, a cumulative count and one ``searchsorted`` per pick. The AdaGrad
-sweeps of uv and iv go through ``adagrad_update`` (kernel B2). With
+scores, a cumulative count and one ``searchsorted`` per pick. The step's
+AdaGrad sweep over uv and iv is one launch of kernel B2. With
 ``gather_mode="mxu"`` the step's row gathers are kernel B9
 (``gather_rows_mxu``: one call for the B*(1+nn) item rows with the bias
 column, one for the B user rows). On a CUDA device every ``scatter_mode``
@@ -66,7 +66,7 @@ from cdae_tpu_torch.ops.sampling import hw_randint
 from cdae_tpu_torch.ops.scatter import row_plan, scatter_add_rows
 from cdae_tpu_torch.solver.optimizer import (
     ADAGRAD_INIT,
-    dense_adagrad_step,
+    dense_adagrad_steps,
     row_adagrad_delta,
 )
 from cdae_tpu_torch.utils.random import step_seed
@@ -137,12 +137,13 @@ def _init_mf_params(gen: torch.Generator, U: int, I: int, D: int, dt,
 
 
 def _adagrad_apply(params, grads, cfg: MFConfig):
-    """One dense accumulate-then-apply AdaGrad step per table, in place:
-    the adagrad_update kernel (B2) when ``use_pallas`` is on."""
-    for name, g in grads.items():
-        dense_adagrad_step(params[name], params[name + "_ag"], g,
-                           cfg.learn_rate, cfg.beta, cfg.using_adagrad,
-                           use_kernel=bool(cfg.use_pallas))
+    """One dense accumulate-then-apply AdaGrad step over every table of
+    ``grads``, in place: one launch of the adagrad_update kernel (B2) when
+    ``use_pallas`` is on."""
+    dense_adagrad_steps(
+        [(params[name], params[name + "_ag"], g) for name, g in grads.items()],
+        cfg.learn_rate, cfg.beta, cfg.using_adagrad,
+        use_kernel=bool(cfg.use_pallas))
     return params
 
 

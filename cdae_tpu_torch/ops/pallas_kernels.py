@@ -14,7 +14,9 @@ Port of cdae_tpu/ops/pallas_kernels.py (every Pallas kernel):
                          from a counter hash of (seed,
                          row, col, draw)
   adagrad_update         in-place a += g^2;              csrc/adagrad_update.cu
-                         p -= lr*g/(beta+sqrt(a))
+                         p -= lr*g/(beta+sqrt(a)); one
+  adagrad_update_tables  launch over a list of tables
+                         (a step's dense tables)
   warp_violator_select   WARP's per-row count of unrated csrc/warp_select.cu
                          items scoring above a threshold
                          + nn uniform picks among them
@@ -34,13 +36,16 @@ Every kernel wrapper routes by the device of the tensors it is given: on a
 CUDA tensor it launches the hand-written kernel (built from
 cdae_tpu_torch/csrc on first use) or raises; on a CPU tensor it runs the
 plain version. There is no fallback from one to the other. Each wrapper
-counts its kernel launches in ``<wrapper>.launches``.
+counts its kernel launches in ``<wrapper>.launches`` (the AdaGrad list
+kernel's in ``adagrad_update.launches``, whichever wrapper launched it).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Callable, NamedTuple, Optional, Tuple
+import threading
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,6 +53,8 @@ from cdae_tpu_torch.ops.topk import stable_topk
 
 NEG = -3.0e38  # cdae_tpu's "excluded" score for rated and padded columns
 _MAX_K = 32  # one warp holds a user's running top-k, one entry per lane
+# an AdaGrad table: (param, acc, grad), updated in place
+AdagradTable = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -456,38 +463,128 @@ def adagrad_update_plain(param: torch.Tensor, acc: torch.Tensor,
     return param, acc
 
 
-def adagrad_update(param: torch.Tensor, acc: torch.Tensor, grad: torch.Tensor,
-                   lr: float, beta: float = 0.0):
-    """One AdaGrad step IN PLACE over (N, D) or (N,): ``acc`` (f32) +=
-    grad**2, then ``param`` (f32 or bf16, f32 arithmetic) -= lr * grad /
-    (beta + sqrt(acc)). ``grad`` is f32. Returns (param, acc), the same
-    tensors. Bit-equal to the plain version: the kernel rounds every
-    operation on its own (no contracted FMA)."""
-    if not _on_cuda(param):
-        return adagrad_update_plain(param, acc, grad, lr, beta)
-    from cdae_tpu_torch.ops import cuda_lib
+def adagrad_update_tables_plain(tables: Sequence[AdagradTable], lr: float,
+                                beta: float = 0.0) -> None:
+    """Plain version of ``adagrad_update_tables``: ``adagrad_update_plain``
+    on each table in turn."""
+    for param, acc, grad in tables:
+        adagrad_update_plain(param, acc, grad, lr, beta)
 
-    dev = param.device
+
+_ADAGRAD_MAX_TABLES = 16  # csrc/adagrad_update.cu kMaxTables
+_PARAM_DTYPES = (torch.float32, torch.bfloat16)
+# the kernel's host descriptors, (param, acc, grad, n, bf16) per table,
+# filled under the lock for each launch
+_ADAGRAD_DESC = (ctypes.c_longlong * (5 * _ADAGRAD_MAX_TABLES))()
+_ADAGRAD_DESC_ADDR = ctypes.addressof(_ADAGRAD_DESC)
+_ADAGRAD_LOCK = threading.Lock()
+_ADAGRAD = None
+
+
+def _adagrad_fn():
+    """The list kernel's C entry point, bound once."""
+    global _ADAGRAD
+    if _ADAGRAD is None:
+        from cdae_tpu_torch.ops import cuda_lib
+
+        _ADAGRAD = cuda_lib.lib().cdae_adagrad_update_tables
+    return _ADAGRAD
+
+
+def _adagrad_table_error(param, acc, grad, dev: torch.device) -> None:
+    """Raise for a table that the kernel does not take, naming what is
+    wrong."""
     shape = tuple(param.shape)
     if param.dim() not in (1, 2):
         raise ValueError(f"param has shape {shape}; expected (N, D) or (N,)")
-    if param.dtype not in (torch.float32, torch.bfloat16):
+    if param.dtype not in _PARAM_DTYPES:
         raise TypeError(f"param has dtype {param.dtype}, expected float32 "
                         "or bfloat16")
     _require(param, "param", param.dtype, shape, dev)
     _require(acc, "acc", torch.float32, shape, dev)
     _require(grad, "grad", torch.float32, shape, dev)
-    n = param.numel()
-    if n >= 2**31:
-        raise ValueError(f"param has {n} elements; the kernel takes < 2**31")
-    if n == 0:
-        return param, acc
-    rc = cuda_lib.lib().cdae_adagrad_update(
-        param.data_ptr(), acc.data_ptr(), grad.data_ptr(), n, float(lr),
-        float(beta), int(param.dtype == torch.bfloat16), _stream(dev),
-    )
-    cuda_lib.check(rc, "adagrad_update")
-    adagrad_update.launches += 1
+    raise ValueError("param, acc and grad must lie on one CUDA device")
+
+
+def _adagrad_launch(tables: Sequence[AdagradTable], lr: float,
+                    beta: float) -> None:
+    """Check CUDA tables and update them with the list kernel: one launch
+    for up to 16 non-empty tables, each counted in
+    ``adagrad_update.launches``. The checks make a few attribute reads a
+    table; ``_adagrad_table_error`` names a failure."""
+    fn = _ADAGRAD or _adagrad_fn()
+    index = tables[0][0].get_device()
+    f32 = torch.float32
+    desc, spans = [], []
+    for param, acc, grad in tables:
+        shape = param.shape
+        if (param.dtype not in _PARAM_DTYPES or acc.dtype != f32
+                or grad.dtype != f32 or len(shape) not in (1, 2)
+                or acc.shape != shape or grad.shape != shape
+                or param.get_device() != index or acc.get_device() != index
+                or grad.get_device() != index or not param.is_contiguous()
+                or not acc.is_contiguous() or not grad.is_contiguous()):
+            _adagrad_table_error(param, acc, grad, tables[0][0].device)
+        n = shape[0] * shape[1] if len(shape) == 2 else shape[0]
+        if n >= 2**31:
+            raise ValueError(f"param has {n} elements; the kernel takes "
+                             "< 2**31 a table")
+        if n == 0:
+            continue
+        bf16 = param.dtype != f32
+        p, a = param.data_ptr(), acc.data_ptr()
+        spans += ((p, p + (2 if bf16 else 4) * n), (a, a + 4 * n))
+        desc += (p, a, grad.data_ptr(), n, int(bf16))
+    # one launch updates its tables in parallel: memory that two tables
+    # write would be raced on (the plain version updates them in turn)
+    spans.sort()
+    if any(nxt[0] < cur[1] for cur, nxt in zip(spans, spans[1:])):
+        raise ValueError("two tables share param or acc memory; the kernel "
+                         "updates its tables at once")
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    width = 5 * _ADAGRAD_MAX_TABLES
+    for start in range(0, len(desc), width):
+        chunk = desc[start:start + width]
+        with _ADAGRAD_LOCK:
+            _ADAGRAD_DESC[:len(chunk)] = chunk
+            rc = fn(_ADAGRAD_DESC_ADDR, len(chunk) // 5, lr, beta, stream)
+        if rc:
+            from cdae_tpu_torch.ops import cuda_lib
+
+            cuda_lib.check(rc, "adagrad_update")
+        adagrad_update.launches += 1
+
+
+def adagrad_update_tables(tables: Sequence[AdagradTable], lr: float,
+                          beta: float = 0.0) -> None:
+    """``adagrad_update`` IN PLACE over a list of (param, acc, grad) tables
+    with one lr and beta: on CUDA tensors one kernel launch for every 16
+    tables (counted in ``adagrad_update.launches``); empty tables are
+    skipped. Bit-equal to ``adagrad_update_plain`` applied to each table
+    in turn, so every grad must already be computed: the kernel updates
+    the tables at once, and raises for two tables whose param or acc
+    memory overlaps."""
+    if not tables:
+        return
+    if not _on_cuda(tables[0][0]):
+        if any(t.is_cuda for table in tables for t in table):
+            raise ValueError("tables on the CPU and on a CUDA device mixed")
+        adagrad_update_tables_plain(tables, lr, beta)
+        return
+    _adagrad_launch(tables, lr, beta)
+
+
+def adagrad_update(param: torch.Tensor, acc: torch.Tensor, grad: torch.Tensor,
+                   lr: float, beta: float = 0.0):
+    """One AdaGrad step IN PLACE over (N, D) or (N,): ``acc`` (f32) +=
+    grad**2, then ``param`` (f32 or bf16, f32 arithmetic) -= lr * grad /
+    (beta + sqrt(acc)). ``grad`` is f32. Returns (param, acc), the same
+    tensors. On CUDA tensors a one-table launch of the list kernel
+    (``adagrad_update_tables``). Bit-equal to the plain version: the kernel
+    rounds every operation on its own (no contracted FMA)."""
+    if not _on_cuda(param):
+        return adagrad_update_plain(param, acc, grad, lr, beta)
+    _adagrad_launch(((param, acc, grad),), lr, beta)
     return param, acc
 
 

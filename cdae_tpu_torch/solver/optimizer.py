@@ -14,7 +14,7 @@ Row ids must lie in [0, N): cdae_tpu's scatters drop out-of-range rows,
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -68,6 +68,34 @@ def adagrad_row_update(
     return param, acc
 
 
+def dense_adagrad_steps(
+    tables: Sequence[pallas_kernels.AdagradTable],
+    learn_rate: float,
+    beta: float = 0.0,
+    use_adagrad: bool = True,
+    use_kernel: bool = False,
+) -> None:
+    """Accumulate-then-apply AdaGrad over a step's dense (param, acc, grad)
+    tables, in place, with f32 optimizer arithmetic: the accumulator is
+    f32, a bf16 param round-trips through f32. The shared dense update of
+    every model.
+
+    ``use_kernel`` (the model's ``use_pallas``) sends the AdaGrad sweep
+    through the ``adagrad_update_tables`` wrapper of ops/pallas_kernels.py:
+    one launch of its CUDA kernel for CUDA tensors, its plain version for
+    CPU tensors. The kernel updates the tables at once, so every grad must
+    be computed (from the pre-update tables) before the call."""
+    f32 = torch.float32
+    tables = [(p, a, g if g.dtype == f32 else g.to(f32)) for p, a, g in tables]
+    if use_adagrad:
+        sweep = (pallas_kernels.adagrad_update_tables if use_kernel
+                 else pallas_kernels.adagrad_update_tables_plain)
+        sweep(tables, learn_rate, beta)
+        return
+    for param, _, g32 in tables:
+        param.copy_(param.to(f32) - learn_rate * g32)
+
+
 def dense_adagrad_step(
     param: torch.Tensor,
     acc: torch.Tensor,
@@ -77,19 +105,9 @@ def dense_adagrad_step(
     use_adagrad: bool = True,
     use_kernel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Accumulate-then-apply AdaGrad with f32 optimizer arithmetic: the
-    accumulator is f32, a bf16 param round-trips through f32. The shared
-    dense update of every model.
-
-    ``use_kernel`` (the model's ``use_pallas``) sends the AdaGrad sweep
-    through the ``adagrad_update`` wrapper of ops/pallas_kernels.py: its
-    CUDA kernel for a CUDA tensor, its plain version for a CPU tensor."""
-    g32 = grad.to(torch.float32)
-    if use_adagrad:
-        sweep = (pallas_kernels.adagrad_update if use_kernel
-                 else pallas_kernels.adagrad_update_plain)
-        return sweep(param, acc, g32, learn_rate, beta)
-    param.copy_(param.to(torch.float32) - learn_rate * g32)
+    """``dense_adagrad_steps`` on one table; returns (param, acc)."""
+    dense_adagrad_steps(((param, acc, grad),), learn_rate, beta, use_adagrad,
+                        use_kernel)
     return param, acc
 
 

@@ -9,7 +9,10 @@ Phases, each printed as one JSON line:
              time (device_ms; beside the library call's where one exists),
              for every kernel here and in the phases below; the fused step
              (B4) also the same bits on a second launch, and B4, B5 and B6
-             one call under torch.profiler (each launch's span)
+             one call under torch.profiler (each launch's span); B2 also
+             over each training path's dense tables in one launch, beside
+             the same tables as one-table calls, the library's AdaGrad over
+             the list and the launch floor (an empty kernel's device time)
   serving path (counts from 0 before slice, read after dense_1m):
     slice   -- ML-1M-scale CDAE serving at D=50 through the CLI --task test
                (dense_R encode + decode kernel + TOPN), checked against the
@@ -22,14 +25,15 @@ Phases, each printed as one JSON line:
              streaming scan
   training path (counts from 0 before, read after):
     train_ml1m -- ML-1M-scale low-rank data, D=50, 10 epochs through the CLI
-               --task train (hw_uniform masks, adagrad_update sweeps); R@10
-               must rise; then one epoch with the kernels against one with
-               the plain versions from the same reset
-  fused training path (counts from 0 before, read after):
+               --task train (hw_uniform masks, one adagrad_update sweep a
+               step); R@10 must rise; then one epoch with the kernels
+               against one with the plain versions from the same reset
+  fused training path (counts from 0 before, read after; B4, B2):
     train_ml1m_fused -- the same 10 epochs with fused_step=True through
                Solver.train: R@10 within 0.02 of the unfused run
   train_speed -- warm training users/s, unfused and fused: ML-1M (D=50)
-             and config-4 (50,000 x 20,000, D=200, 1 GB dense_R)
+             and config-4 (50,000 x 20,000, D=200, 1 GB dense_R); B2 once
+             a step (as in train_speed_warp and train_speed_fism)
   kernel_warp -- the WARP violator kernel (B7) against its plain version at
              (B, I, D, nn) = (8192, 3706, 10, 5) and (8192, 20000, 10, 5),
              both noises, its span and device time (and its device time
@@ -143,8 +147,8 @@ KERNELS = {
     "adagrad_update": ("pallas_kernels",
                        "cdae_tpu_torch/csrc/adagrad_update.cu",
                        "cdae_tpu/ops/pallas_kernels.py:108",
-                       ("training", "warp_training", "fism_training",
-                        "warp_mxu")),
+                       ("training", "fused_training", "warp_training",
+                        "fism_training", "warp_mxu")),
     "cdae_dense_step_fused": ("cdae_fused", "cdae_tpu_torch/csrc/cdae_fused.cu",
                               "cdae_tpu/ops/cdae_fused.py:249",
                               ("fused_training",)),
@@ -195,8 +199,11 @@ def read_counts(path: str, launches: dict, failed: list) -> None:
 
 
 # a row's shape keys and measurements, as the kernel table repeats them
-SHAPE_KEYS = ("B", "I", "D", "k", "nn", "shape", "case", "P", "N", "C")
+SHAPE_KEYS = ("B", "I", "D", "k", "nn", "shape", "case", "tables", "P", "N",
+              "C")
 MEASURE_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+                "library", "library_device_ms", "launch_floor_ms",
+                "one_table_calls_ms", "one_table_calls_device_ms",
                 "bound_ms", "bound_by", "bound_f32_ms")
 
 
@@ -379,6 +386,112 @@ def _check_topk(torch, results, name, B, I, D, k, kernel, plain, work):
     record(results, name, row)
 
 
+# each training path's dense tables, as one step hands them to B2: CDAE's W,
+# b' and b at ML-1M (D=50) and config-4 (D=200), beta 1; WARP's uv and iv
+# (its step leaves the biases, as warp.hpp does) and FISM's bu, Q, bi and
+# P at ML-1M, D=10, beta 0
+ADAGRAD_SETS = (
+    ("cdae_ml1m", ((3706, 50), (3706,), (50,)), 1.0),
+    ("cdae_config4", ((20000, 200), (20000,), (200,)), 1.0),
+    ("warp_ml1m", ((6040, 10), (3706, 10)), 0.0),
+    ("fism_ml1m", ((6040,), (3706, 10), (3706,), (3706, 10)), 0.0),
+)
+
+
+def _library_adagrad(torch, tables, beta):
+    """torch.optim.Adagrad over the tables' params (sum += g^2; p -= lr * g
+    / (sqrt(sum) + eps), with eps = beta this update): fused where this
+    PyTorch takes CUDA tensors for it, else foreach. Returns (step, name);
+    it updates copies of the params."""
+    for kw in (dict(fused=True), dict(foreach=True)):
+        params = [p.clone().requires_grad_(True) for p, _, _ in tables]
+        for x, (_, _, gr) in zip(params, tables):
+            x.grad = gr
+        try:
+            opt = torch.optim.Adagrad(params, lr=0.1, eps=beta,
+                                      initial_accumulator_value=1e-4, **kw)
+            opt.step()
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError):
+            continue
+        return opt.step, "Adagrad(%s=True)" % next(iter(kw))
+    raise RuntimeError("torch.optim.Adagrad takes neither fused nor foreach")
+
+
+def phase_adagrad_tables(torch, P, g, results) -> bool:
+    """B2 over each path's table set (ADAGRAD_SETS) in one launch: bit-equal
+    to the plain version table by table with f32 params and with every
+    other param in bf16; the launch counted once. Times: the call's span,
+    its device time, the same tables as a sequence of one-table calls,
+    the plain version, the library's AdaGrad over the same list, and the
+    launch floor (the device time of an empty kernel, torch.cuda._sleep(0),
+    in the same queue). Returns whether every set was bit-equal."""
+    dev = torch.device("cuda")
+    ok = True
+
+    def make(shapes, bf16):
+        out = []
+        for k, shape in enumerate(shapes):
+            p = torch.randn(shape, generator=g, device=dev) * 0.1
+            out.append((p.to(torch.bfloat16) if k % 2 and bf16 else p,
+                        torch.rand(shape, generator=g, device=dev) + 1e-4,
+                        torch.randn(shape, generator=g, device=dev)))
+        return out
+
+    floor = device_ms(lambda: torch.cuda._sleep(0))
+    for name, shapes, beta in ADAGRAD_SETS:
+        equal = {}
+        for bf16 in (False, True):
+            tabs = make(shapes, bf16)
+            want = [(p.clone(), a.clone(), gr) for p, a, gr in tabs]
+            P.adagrad_update_tables_plain(want, 0.1, beta)
+            before = P.adagrad_update.launches
+            P.adagrad_update_tables(tabs, 0.1, beta)
+            torch.cuda.synchronize()
+            one = P.adagrad_update.launches == before + 1
+            errs = [max((p.float() - wp.float()).abs().max().item(),
+                        (a - wa).abs().max().item())
+                    for (p, a, _), (wp, wa, _) in zip(tabs, want)]
+            equal["bf16" if bf16 else "f32"] = dict(
+                bit_equal=one and all(torch.equal(p, wp) and torch.equal(a, wa)
+                                      for (p, a, _), (wp, wa, _)
+                                      in zip(tabs, want)),
+                one_launch=one, max_abs_err=max(errs))
+        tabs = make(shapes, False)
+        step, library = _library_adagrad(torch, tabs, beta)
+        n = sum(p.numel() for p, _, _ in tabs)
+
+        def call():
+            P.adagrad_update_tables(tabs, 0.1, beta)
+
+        def one_table_calls():
+            for p, a, gr in tabs:
+                P.adagrad_update(p, a, gr, 0.1, beta)
+
+        row = dict(phase="kernel", kernel="adagrad_update", case=name,
+                   tables=[list(s) for s in shapes], elements=n,
+                   beta=beta, gates=equal,
+                   max_abs_err=max(v["max_abs_err"] for v in equal.values()),
+                   # spans over 21 calls: the host's share of a small
+                   # set's span varies from call to call
+                   ms=median_ms(call, reps=21), device_ms=device_ms(call),
+                   host_us=_host_us(torch, call),
+                   one_table_calls_ms=median_ms(one_table_calls, reps=21),
+                   one_table_calls_device_ms=device_ms(one_table_calls),
+                   plain_ms=median_ms(lambda: P.adagrad_update_tables_plain(
+                       tabs, 0.1, beta)),
+                   library=library, library_ms=median_ms(step),
+                   library_device_ms=device_ms(step),
+                   launch_floor_ms=floor,
+                   # f32 params: 3 reads and 2 writes of 4 bytes an
+                   # element; 7 operations
+                   **bound(20.0 * n, 7.0 * n))
+        emit(row)
+        record(results, "adagrad_update", row)
+        ok = ok and all(v["bit_equal"] for v in equal.values())
+    return ok
+
+
 def phase_train_kernels(torch, results):
     """B1, B2 and B4 against their plain versions at the training path's
     shapes: ML-1M (I=3706, D=50) and config-4 (I=20000, D=200), B=1024."""
@@ -415,8 +528,13 @@ def phase_train_kernels(torch, results):
         if not equal:
             bad.append(f"hw_uniform {shape}")
 
-    # B2 adagrad_update: in place, f32 or bf16 param; _rn intrinsics make
-    # it bit-equal (max relative error 0)
+    # B2 over each training path's dense tables in one launch (the first
+    # row, CDAE's at ML-1M, is the kernel's own in the table)
+    if not phase_adagrad_tables(torch, P, g, results):
+        bad.append("adagrad_update_tables")
+
+    # B2 adagrad_update on one table: in place, f32 or bf16 param; _rn
+    # intrinsics make it bit-equal (max relative error 0)
     for shape in ((3706, 50), (20000, 200), (3706,)):
         p = torch.randn(shape, generator=g, device=dev) * 0.1
         a = torch.rand(shape, generator=g, device=dev) + 1e-4
@@ -746,9 +864,11 @@ def phase_train_speed(torch, held):
     """Warm training throughput, unfused and fused: one warm-up epoch, then
     2 timed epochs (train_epochs), host clock between synchronizes.
     users/s = users * epochs / wall. ML-1M (D=50) and config-4 (50,000 x
-    20,000, D=200, dense_R 1 GB int8), batch 1024."""
+    20,000, D=200, dense_R 1 GB int8), batch 1024. B2 must launch once a
+    step on both."""
     import dataclasses
 
+    import cdae_tpu_torch.ops.pallas_kernels as P
     from cdae_tpu_torch.data.synthetic import synthetic_interactions
     from cdae_tpu_torch.models.cdae import CDAE, CDAEConfig
     from cdae_tpu_torch.solver.solver import _params_finite
@@ -775,17 +895,21 @@ def phase_train_speed(torch, held):
             model.train_epochs(state, 1, SEED)  # warm-up
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            b2 = P.adagrad_update.launches
             t0 = time.perf_counter()
             model.train_epochs(state, 2, SEED)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            steps = 2 * state.aux["dense_batches"][0].shape[0]
             key = "fused" if fused else "unfused"
             cell[key] = dict(
                 seconds_2_epochs=wall,
                 users_per_s=train.num_users * 2 / wall,
-                ms_per_step=wall * 1e3 / (2 * state.aux["dense_batches"][0]
-                                          .shape[0]),
+                ms_per_step=wall * 1e3 / steps,
+                # W, b' and b unfused, b after the fused step: one launch
+                b2_launches_per_step=(P.adagrad_update.launches - b2) / steps,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            ok = ok and cell[key]["b2_launches_per_step"] == 1.0
         cell["params_finite"] = _params_finite(state.params)
         ok = ok and cell["dense_R"] and cell["params_finite"]
         out[name] = cell
@@ -996,9 +1120,11 @@ def phase_train_speed_warp(torch, held):
     """Warm WARP training throughput, kernel and cumsum routes: one
     warm-up epoch, then 2 timed epochs (host clock between synchronizes);
     users/s = users * epochs / wall; then one more epoch under
-    torch.profiler for the device busy time and idle share."""
+    torch.profiler for the device busy time and idle share. B2 must
+    launch once a step on the kernel routes."""
     import dataclasses
 
+    import cdae_tpu_torch.ops.pallas_kernels as P
     from cdae_tpu_torch.models.mf import WARP
     from cdae_tpu_torch.solver.solver import _params_finite
 
@@ -1023,11 +1149,13 @@ def phase_train_speed_warp(torch, held):
         model.train_one_iteration(state, SEED)  # warm-up, builds the mask
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        b2 = P.adagrad_update.launches
         t0 = time.perf_counter()
         for _ in range(2):
             model.train_one_iteration(state, SEED)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        b2 = (P.adagrad_update.launches - b2) / (2 * steps)
         prof = _profile(torch, lambda: model.train_one_iteration(state, SEED))
         prof["launches_per_step"] = prof.pop("device_kernels") / steps
         finite = _params_finite(state.params)
@@ -1035,9 +1163,11 @@ def phase_train_speed_warp(torch, held):
             seconds_2_epochs=wall, users_per_s=train.num_users * 2 / wall,
             instances_per_s=n * 2 / wall,
             ms_per_step=wall * 1e3 / (2 * steps),
+            # uv and iv in one launch (none on the cumsum route)
+            b2_launches_per_step=b2,
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
             params_finite=finite, profiled_epoch=prof)
-        ok = ok and finite
+        ok = ok and finite and b2 == (1.0 if kw["use_pallas"] else 0.0)
         del state
     out["ok"] = ok
     return out
@@ -1364,7 +1494,8 @@ def phase_train_speed_fism(torch, held):
     """Warm FISM training throughput, dense-slab and sparse (B8) routes:
     one warm-up epoch, 2 timed epochs (host clock between synchronizes),
     users/s = users * epochs / wall; then one epoch under torch.profiler
-    (device kernels a step), counting B8's plans and reduces a step."""
+    (device kernels a step), counting B8's plans and reduces a step and
+    B2's launches, which must be one a step."""
     import dataclasses
 
     import cdae_tpu_torch.ops.pallas_kernels as P
@@ -1392,19 +1523,23 @@ def phase_train_speed_fism(torch, held):
             model.train_one_iteration(state, SEED)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        b8 = (P.scatter_plan.launches, P.scatter_matmul.launches)
+        b8 = (P.scatter_plan.launches, P.scatter_matmul.launches,
+              P.adagrad_update.launches)
         prof = _profile(torch, lambda: model.train_one_iteration(state, SEED))
         prof["launches_per_step"] = prof.pop("device_kernels") / steps
         prof["b8_plans_per_step"] = (P.scatter_plan.launches - b8[0]) / steps
         prof["b8_reduces_per_step"] = (P.scatter_matmul.launches
                                        - b8[1]) / steps
+        # bu, Q, bi and P in one launch
+        prof["b2_launches_per_step"] = (P.adagrad_update.launches
+                                        - b8[2]) / steps
         finite = _params_finite(state.params)
         out[route] = dict(seconds_2_epochs=wall, users_per_s=U * 2 / wall,
                           steps_per_epoch=steps,
                           ms_per_step=wall * 1e3 / (2 * steps),
                           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                           params_finite=finite, profiled_epoch=prof)
-        ok = ok and finite
+        ok = ok and finite and prof["b2_launches_per_step"] == 1.0
         del state
     out["ok"] = ok
     return out

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels of cdae_tpu_torch against their plain
 PyTorch versions, on a GPU, at ragged shapes: the serving kernels (decode,
 fused top-k at the edges of their tiles, equal scores included), the
-training kernels (hw_uniform and adagrad_update bit for bit, the fused
+training kernels (hw_uniform and adagrad_update bit for bit, the latter
+also as one launch over a list of tables, once a training step; the fused
 step within f32 summation-order tolerance and bit-equal run to run), the WARP
 violator kernel (counts and picks exact on dyadic inputs, at the edges of
 its tiles and catalog splits), and the row aggregation (B8: its plan equal
@@ -267,6 +268,161 @@ def test_adagrad_update_kernel_is_bit_equal(cuda, rng_np, shape, dtype):
     assert got[0] is pk and got[1] is ak
     assert P.adagrad_update.launches == before + 1
     assert torch.equal(pk, want[0]) and torch.equal(ak, want[1])
+
+
+# each training path's dense tables at their ML-1M shapes (CDAE D=50; WARP
+# and FISM D=10), CDAE's asymmetric set, and odd element counts
+_TABLE_SETS = {
+    "cdae": [(3706, 50), (3706,), (50,)],
+    "cdae_asymmetric": [(301, 7), (301,), (301, 7), (7,)],
+    "warp": [(6040, 10), (3706, 10)],
+    "fism": [(6040,), (3706, 10), (3706,), (3706, 10)],
+    "odd_counts": [(1,), (3,), (5,), (97,), (301, 7), (4099,)],
+}
+
+
+def _adagrad_tables(dev, rng, shapes, bf16=()):
+    """(param, acc, grad) per shape on ``dev``; params at the indices in
+    ``bf16`` are bfloat16."""
+    out = []
+    for k, shape in enumerate(shapes):
+        p = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        a = torch.from_numpy(np.abs(rng.standard_normal(shape))
+                             .astype(np.float32) + 1e-4)
+        g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        out.append((p.to(dev, torch.bfloat16 if k in bf16 else torch.float32),
+                    a.to(dev), g.to(dev)))
+    return out
+
+
+def _check_tables_launch(tables, lr, beta, launches=1):
+    """The list kernel on ``tables`` bit for bit against the plain version
+    on clones, in ``launches`` launches."""
+    want = [(p.clone(), a.clone(), g) for p, a, g in tables]
+    P.adagrad_update_tables_plain(want, lr, beta)
+    before = P.adagrad_update.launches
+    P.adagrad_update_tables(tables, lr, beta)
+    torch.cuda.synchronize()
+    assert P.adagrad_update.launches == before + launches
+    for (p, a, _), (wp, wa, _) in zip(tables, want):
+        assert p.dtype == wp.dtype
+        assert torch.equal(p, wp) and torch.equal(a, wa)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_TABLE_SETS))
+@pytest.mark.parametrize("mixed", [False, True])
+def test_adagrad_update_tables_kernel_is_bit_equal(cuda, rng_np, case,
+                                                   mixed):
+    """One launch over a path's tables, bit-equal to the plain version
+    table by table; ``mixed``: every other param in bf16."""
+    shapes = _TABLE_SETS[case]
+    bf16 = range(0, len(shapes), 2) if mixed else ()
+    _check_tables_launch(_adagrad_tables(cuda, rng_np, shapes, bf16), 0.1,
+                         0.0 if case in ("warp", "fism") else 1.0)
+
+
+@pytest.mark.cuda
+def test_adagrad_update_tables_misaligned_and_empty(cuda, rng_np):
+    """Views 4 bytes (f32) and 2 bytes (bf16) off the 16-byte alignment take
+    the scalar path inside the same launch as aligned tables; an empty
+    table is skipped."""
+    def view(t, dtype=torch.float32):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)
+        buf[1:].copy_(t.reshape(-1))
+        return buf[1:].view(t.shape)
+
+    tables = _adagrad_tables(cuda, rng_np, [(301, 7), (97,), (50, 10),
+                                            (1030,)], bf16=(3,))
+    p, a, g = tables[0]
+    tables[0] = (view(p), view(a), view(g))  # all three misaligned
+    p, a, g = tables[3]
+    tables[3] = (view(p, torch.bfloat16), a, g)  # a bf16 param 2 bytes off
+    assert tables[0][0].data_ptr() % 16 and tables[3][0].data_ptr() % 8
+    empty = tuple(torch.zeros((0, 5), device=cuda) for _ in range(3))
+    _check_tables_launch(tables[:2] + [empty] + tables[2:], 0.05, 1.0)
+    before = P.adagrad_update.launches
+    P.adagrad_update_tables([empty], 0.1)  # nothing to launch
+    assert P.adagrad_update.launches == before
+
+
+@pytest.mark.cuda
+def test_adagrad_update_tables_splits_long_lists(cuda, rng_np):
+    """Up to 16 tables a launch: 20 tables take two, bit-equal."""
+    shapes = [(7 + 13 * k, 3) if k % 2 else (5 + 11 * k,)
+              for k in range(20)]
+    _check_tables_launch(_adagrad_tables(cuda, rng_np, shapes, bf16=(3,)),
+                         0.1, 1.0, launches=2)
+
+
+@pytest.mark.cuda
+def test_adagrad_update_tables_from_threads(cuda, rng_np):
+    """The wrapper fills one descriptor buffer under a lock: 8 threads that
+    launch at once, a switch interval of 1 us, each update their own
+    tables 20 times, bit-equal to the plain version."""
+    import sys
+    import threading
+
+    sets = [_adagrad_tables(cuda, rng_np, [(97 + 13 * k, 5), (301,)])
+            for k in range(8)]
+    wants = []
+    for tabs in sets:
+        want = [(p.clone(), a.clone(), g) for p, a, g in tabs]
+        for _ in range(20):
+            P.adagrad_update_tables_plain(want, 0.1, 1.0)
+        wants.append(want)
+    errors = []
+
+    def run(tabs):
+        try:
+            for _ in range(20):
+                P.adagrad_update_tables(tabs, 0.1, 1.0)
+        except Exception as e:  # reported by the assert below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in sets]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    torch.cuda.synchronize()
+    for tabs, want in zip(sets, wants):
+        for (p, a, _), (wp, wa, _) in zip(tabs, want):
+            assert torch.equal(p, wp) and torch.equal(a, wa)
+
+
+@pytest.mark.cuda
+def test_adagrad_update_tables_rejects_shared_memory(cuda):
+    """A list whose tables would race in one launch raises before it
+    launches: a param twice, an acc twice, overlapping views."""
+    p, q = torch.zeros((10, 4), device=cuda), torch.zeros((10, 4), device=cuda)
+    g = torch.ones((10, 4), device=cuda)
+
+    def acc():
+        return torch.full((10, 4), 1e-4, device=cuda)
+
+    buf = torch.zeros(60, device=cuda)
+    before = P.adagrad_update.launches
+    for tables in ([(p, acc(), g), (p, acc(), g)],
+                   [(p, acc(), g), (q, acc(), g), (p, acc(), g)],
+                   [(p, buf[:40].view(10, 4), g),
+                    (q, buf[20:60].view(10, 4), g)],
+                   [(buf[:40].view(10, 4), acc(), g),
+                    (buf[20:60].view(10, 4), acc(), g)],
+                   [(p, p, g)]):
+        with pytest.raises(ValueError):
+            P.adagrad_update_tables(tables, 0.1)
+    with pytest.raises(ValueError):  # a CPU table in a CUDA list
+        P.adagrad_update_tables([(p, acc(), g), (q.cpu(), acc().cpu(),
+                                                 g.cpu())], 0.1)
+    assert P.adagrad_update.launches == before
+    assert not p.any()  # nothing was updated
 
 
 def _fused_inputs(dev, rng, B, I, D):
@@ -740,7 +896,7 @@ def test_cuda_paths_launch_the_row_kernels(cuda, rng_np):
     model.train_one_iteration(state, 5)
     steps = len(state.aux["sparse_batches"])
     assert P.scatter_matmul.launches == counts[0] + 2 * steps  # Q+bi, P
-    assert P.adagrad_update.launches == counts[1] + 4 * steps
+    assert P.adagrad_update.launches == counts[1] + steps  # bu, Q, bi, P
     assert P.scatter_plan.launches == counts[2] + steps  # one shared plan
 
     warp = WARP(MFConfig(num_dim=6, batch_size=64, gather_mode="mxu",
@@ -748,10 +904,43 @@ def test_cuda_paths_launch_the_row_kernels(cuda, rng_np):
                          lambda_=0.1), device="cuda")
     ws = warp.reset(data, seed=1)
     counts = (P.gather_rows_mxu.launches, P.scatter_matmul.launches,
-              P.warp_violator_select.launches, P.scatter_plan.launches)
+              P.warp_violator_select.launches, P.scatter_plan.launches,
+              P.adagrad_update.launches)
     warp.train_one_iteration(ws, 5)
     n = -(-len(data) // 64)
     assert P.gather_rows_mxu.launches == counts[0] + 2 * n
     assert P.scatter_matmul.launches == counts[1] + 2 * n
     assert P.warp_violator_select.launches == counts[2] + n
     assert P.scatter_plan.launches == counts[3] + 2 * n  # items, users
+    assert P.adagrad_update.launches == counts[4] + n  # uv, iv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["cdae", "cdae_asymmetric", "cdae_fused",
+                                  "fism_slab"])
+def test_training_paths_launch_adagrad_once_a_step(cuda, path):
+    """A step's dense tables take one launch of B2: CDAE's W, b' and b (and
+    V when asymmetric) unfused, its b after the fused step, FISM's bu, Q,
+    bi and P on the slab route (the sparse route and WARP's uv and iv:
+    above)."""
+    from cdae_tpu_torch.data.synthetic import lowrank_interactions
+    from cdae_tpu_torch.models.cdae import CDAE, CDAEConfig
+    from cdae_tpu_torch.models.fism import FISM, FISMConfig
+
+    data = lowrank_interactions(60, 80, 10, seed=3)
+    if path == "fism_slab":
+        model = FISM(FISMConfig(num_dim=6, num_neg=2, batch_size=16),
+                     device="cuda")
+    else:
+        model = CDAE(CDAEConfig(num_dim=6, corruption_ratio=0.5, num_neg=2,
+                                batch_size=16,
+                                asymmetric=path == "cdae_asymmetric",
+                                fused_step=path == "cdae_fused"),
+                     device="cuda")
+    state = model.reset(data, seed=1)
+    assert "dense_R" in state.aux
+    before = P.adagrad_update.launches
+    model.train_one_iteration(state, 5)
+    steps = state.aux["dense_batches"][0].shape[0]
+    assert steps > 1
+    assert P.adagrad_update.launches == before + steps

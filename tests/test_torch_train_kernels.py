@@ -3,7 +3,9 @@
   B1 hw_uniform       bit for bit against cdae_tpu's tiling-invariant hash
                       (cdae_tpu/ops/cdae_fused.py _hash_uniform)
   B2 adagrad_update   against cdae_tpu's Pallas kernel in interpret mode, at
-                      tests/test_pallas.py's shapes
+                      tests/test_pallas.py's shapes, and over each training
+                      path's list of tables (adagrad_update_tables, one
+                      launch on the card) table by table
   B4 the fused step   against cdae_tpu's Pallas kernel in interpret mode with
                       hash noise, corruption and negatives ON: both draw the
                       same masks by construction; and the port's unfused
@@ -14,6 +16,7 @@ The kernels themselves are held against these plain versions on a GPU
 """
 
 import dataclasses
+import types
 import warnings
 
 import jax
@@ -26,6 +29,7 @@ import cdae_tpu_torch.models.cdae as tcdae
 from cdae_tpu.ops.cdae_fused import _hash_uniform
 from cdae_tpu.ops.cdae_fused import cdae_dense_step_fused as jfused
 from cdae_tpu.ops.pallas_kernels import adagrad_update as jadagrad
+from cdae_tpu.solver import optimizer as jopt
 from cdae_tpu_torch.data.dataset import Interactions as TInteractions
 from cdae_tpu_torch.ops import cdae_fused as tfused
 from cdae_tpu_torch.ops import pallas_kernels as P
@@ -90,6 +94,155 @@ def test_adagrad_update_plain_1d_matches_pallas(rng_np):
     assert tp.shape == (N,)
     np.testing.assert_allclose(tp.numpy(), np.asarray(want[0]), rtol=1e-5,
                                atol=1e-6)
+
+
+# B2 over the tables of one training step, at small widths: the tables of
+# each path's dense sweep, a bf16 param among f32 ones, beta = 0, and an
+# empty table between two others
+_TABLE_SETS = {
+    "cdae": ([(30, 5), (30,), (5,)], 1.0, ()),
+    "cdae_asymmetric": ([(30, 5), (30,), (30, 5), (5,)], 1.0, ()),
+    "warp": ([(20, 5), (30, 5), (30,)], 0.0, ()),
+    "fism": ([(20,), (30, 5), (30,), (30, 5)], 0.0, ()),
+    "bf16_param": ([(30, 5), (30,), (5,)], 1.0, (0, 2)),
+    "empty_table": ([(30, 5), (0, 5), (30,)], 0.5, ()),
+}
+
+
+def _table_arrays(rng, shapes):
+    return [(rng.standard_normal(s).astype(np.float32),
+             np.abs(rng.standard_normal(s)).astype(np.float32) + 1e-4,
+             rng.standard_normal(s).astype(np.float32)) for s in shapes]
+
+
+@pytest.mark.parametrize("case", list(_TABLE_SETS))
+def test_adagrad_update_tables_plain_matches_pallas(rng_np, case):
+    """The list wrapper (its CPU route) and its plain version against
+    cdae_tpu's Pallas kernel applied table by table (a bf16 param against
+    cdae_tpu's dense_adagrad_step, the bf16 update the kernel stands for),
+    with the tolerance of test_adagrad_update_plain_matches_pallas; empty
+    tables are untouched."""
+    shapes, beta, bf16 = _TABLE_SETS[case]
+    arrays = _table_arrays(rng_np, shapes)
+    want = []
+    for k, (p, a, g) in enumerate(arrays):
+        if not p.size:
+            want.append(None)
+            continue
+        ja = jnp.array(a, copy=True)
+        if k in bf16:  # the Pallas kernel takes f32 params only
+            want.append(jopt.dense_adagrad_step(
+                jnp.asarray(p).astype(jnp.bfloat16), ja, jnp.asarray(g), 0.1,
+                beta))
+        else:
+            want.append(jadagrad(jnp.array(p, copy=True), ja, jnp.asarray(g),
+                                 0.1, beta, tile=128))
+    before = P.adagrad_update.launches
+    for fn in (P.adagrad_update_tables, P.adagrad_update_tables_plain):
+        tables = []
+        for k, (p, a, g) in enumerate(arrays):
+            tp = torch.from_numpy(p.copy())
+            if k in bf16:
+                tp = tp.to(torch.bfloat16)
+            tables.append((tp, torch.from_numpy(a.copy()),
+                           torch.from_numpy(g)))
+        assert fn(tables, 0.1, beta) is None  # in place
+        for k, ((tp, ta, _), w) in enumerate(zip(tables, want)):
+            if w is None:
+                assert tp.shape == (0, 5) and ta.shape == (0, 5)
+                continue
+            assert (tp.dtype == torch.bfloat16) == (k in bf16)
+            np.testing.assert_allclose(ta.numpy(), np.asarray(w[1]),
+                                       rtol=1e-6)
+            np.testing.assert_allclose(
+                tp.float().numpy(), np.asarray(w[0]).astype(np.float32),
+                rtol=1e-5, atol=1e-6)
+    assert P.adagrad_update.launches == before  # no kernel on the CPU
+    assert P.adagrad_update_tables([], 0.1) is None
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("use_adagrad", [True, False])
+def test_dense_adagrad_steps_equals_step_by_step(rng_np, use_kernel,
+                                                 use_adagrad):
+    """One dense_adagrad_steps call gives the bits of dense_adagrad_step on
+    each table in turn: f32 and bf16 params, a bf16 grad, an empty
+    table."""
+    from cdae_tpu_torch.solver import optimizer as topt
+
+    arrays = _table_arrays(rng_np, [(30, 5), (30,), (0, 5), (20, 5)])
+
+    def tables():
+        out = []
+        for k, (p, a, g) in enumerate(arrays):
+            tp, tg = torch.from_numpy(p.copy()), torch.from_numpy(g)
+            out.append((tp.to(torch.bfloat16) if k == 1 else tp,
+                        torch.from_numpy(a.copy()),
+                        tg.to(torch.bfloat16) if k == 3 else tg))
+        return out
+
+    one, many = tables(), tables()
+    for p, a, g in one:
+        topt.dense_adagrad_step(p, a, g, 0.1, 0.5, use_adagrad, use_kernel)
+    assert topt.dense_adagrad_steps(many, 0.1, 0.5, use_adagrad,
+                                    use_kernel) is None
+    for (p1, a1, _), (p2, a2, _) in zip(one, many):
+        assert p1.dtype == p2.dtype
+        assert torch.equal(p1, p2) and torch.equal(a1, a2)
+
+
+@pytest.mark.parametrize("path,tables", [
+    ("cdae", 3), ("cdae_asymmetric", 4), ("cdae_fused", 1), ("warp", 2),
+    ("fism_slab", 4), ("fism_sparse", 4)])
+def test_training_paths_sweep_their_tables_once_a_step(monkeypatch, path,
+                                                       tables):
+    """Each training step hands all its dense tables to ONE sweep call
+    (one B2 launch on the card): CDAE's W, b' and b (and V), b alone
+    after the fused step, WARP's uv and iv (its step leaves the biases,
+    as warp.hpp does), FISM's bu, Q, bi and P on both routes."""
+    from cdae_tpu_torch.data.synthetic import lowrank_interactions
+    from cdae_tpu_torch.models.cdae import CDAE, CDAEConfig
+    from cdae_tpu_torch.models.fism import FISM, FISMConfig
+    from cdae_tpu_torch.models.mf import WARP, MFConfig
+
+    from cdae_tpu_torch.solver import optimizer as topt
+
+    calls = []
+
+    def counted(fn):
+        def call(tabs, *args):
+            calls.append(len(tabs))
+            return fn(tabs, *args)
+        return call
+
+    # the sweeps the optimizer calls, each call counted with its tables
+    monkeypatch.setattr(topt, "pallas_kernels", types.SimpleNamespace(
+        adagrad_update_tables=counted(P.adagrad_update_tables),
+        adagrad_update_tables_plain=counted(P.adagrad_update_tables_plain)))
+    data = lowrank_interactions(60, 80, 10, seed=3)
+    if path.startswith("cdae"):
+        model = CDAE(CDAEConfig(num_dim=6, corruption_ratio=0.5, num_neg=2,
+                                batch_size=16,
+                                asymmetric=path == "cdae_asymmetric",
+                                fused_step=path == "cdae_fused"),
+                     device="cpu")
+    elif path == "warp":
+        model = WARP(MFConfig(num_dim=6, batch_size=64, loss="HINGE",
+                              beta=0.0, lambda_=0.1), device="cpu")
+    else:
+        model = FISM(FISMConfig(num_dim=6, num_neg=2, batch_size=16,
+                                dense_mode=path == "fism_slab"),
+                     device="cpu")
+    state = model.reset(data, seed=1)
+    model.train_one_iteration(state, 5)
+    if path == "warp":
+        steps = -(-len(data) // 64)
+    elif path == "fism_sparse":
+        steps = len(state.aux["sparse_batches"])
+    else:
+        steps = state.aux["dense_batches"][0].shape[0]
+    assert steps > 1
+    assert calls == [tables] * steps
 
 
 def _fused_problem(act="sigmoid", D=12):
