@@ -1,5 +1,5 @@
-"""CLI of the port (port of cdae_tpu/cli.py, the CDAE, WARP and FISM
-tasks).
+"""CLI of the port (port of cdae_tpu/cli.py, the CDAE, WARP, FISM and
+Popularity tasks).
 
 The flag surface is cdae_tpu's, so command lines carry over, plus
 ``--device`` (default ``cuda``; ``--device cpu`` is the only way onto the
@@ -7,22 +7,23 @@ CPU -- a CUDA request without a GPU raises). Tasks:
 
   prepare  -- parse the text input, build vocabs, write the cache
   split    -- per-user split of the cache, write train/test caches
-  train    -- load --cache_file, split it (--test_ratio, --seed), train
-              --method CDAE, WARP, FISM or FISMPAIR with Solver.train
-              (SGDSolver with --learn_rate for FISM), evaluating every
-              --eval_iters; --init_checkpoint resumes, --checkpoint /
-              --checkpoint_every write checkpoints. cdae_tpu trains the
-              Popularity baseline first, which is not ported yet (ROADMAP
-              A9): pass --skip_popularity.
+  train    -- load --cache_file, split it (--test_ratio, --seed), train and
+              evaluate the Popularity baseline (one TOPN row; skipped with
+              --skip_popularity), as cdae_tpu does; then, unless --method
+              is NONE, train --method CDAE, WARP, FISM, FISMPAIR or POP
+              with Solver.train (SGDSolver with --learn_rate for FISM),
+              evaluating every --eval_iters; --init_checkpoint resumes,
+              --checkpoint / --checkpoint_every write checkpoints. CDAE
+              trains in dense mode while the int8 (U, I) matrix fits
+              (--dense_mode auto), else with the sparse step.
   test     -- load split caches, restore --init_checkpoint (a cdae_tpu or
               cdae_tpu_torch checkpoint), evaluate any of those methods
 
 ``sweep``, and every other method (the other MF models, ALS, the linear
-and neighbour models, Popularity), come with later slices of the port and
-exit with a message saying so.
+and neighbour models), come with later slices of the port and exit with a
+message saying so.
 
-Run: ``python -m cdae_tpu_torch.cli --task train --method WARP
---skip_popularity ...``
+Run: ``python -m cdae_tpu_torch.cli --task train --method CDAE ...``
 """
 
 from __future__ import annotations
@@ -152,6 +153,8 @@ def build_model(args):
         raise SystemExit(f"--sharded {_LATER}")
     dense = None if args.dense_mode == "auto" else _booly(args.dense_mode)
     cls, cfg_cls = MODEL_REGISTRY[method]
+    if cfg_cls is None:
+        return cls(device=args.device)
     if cfg_cls is MFConfig:
         return cls(MFConfig(
             learn_rate=args.learn_rate, beta=args.beta, lambda_=args.lambda_,
@@ -198,22 +201,30 @@ def _eval_types(args) -> list:
 
 
 def train(args):
-    """The train task: split ``--cache_file``, train with Solver.train
-    (SGDSolver from --learn_rate for FISM, as cdae_tpu), return the Solver
-    (its ``history`` holds every eval row, iteration 0 included)."""
-    from cdae_tpu_torch.models import FISM
+    """The train task: split ``--cache_file``, train and evaluate
+    Popularity first unless ``--skip_popularity`` (cdae_tpu's order), then
+    train ``--method`` with Solver.train (SGDSolver from --learn_rate for
+    FISM, as cdae_tpu). Returns the method's Solver (its ``history`` holds
+    every eval row, iteration 0 included), Popularity's for --method NONE,
+    or None when nothing trains (--method NONE --skip_popularity)."""
+    from cdae_tpu_torch.models import FISM, Popularity
     from cdae_tpu_torch.solver.solver import SGDSolver, Solver
 
-    if not args.skip_popularity:
-        raise SystemExit(
-            "--task train trains the Popularity baseline first, as cdae_tpu "
-            f"does; Popularity (ROADMAP A9) {_LATER}. Pass --skip_popularity"
-        )
-    model = build_model(args)  # resolves --device first: fails fast
+    none = args.method.upper() == "NONE"
+    if none and args.skip_popularity:
+        return None
+    # resolve --device (and the method) before loading: fails fast
+    pop = None if args.skip_popularity else Popularity(device=args.device)
+    model = None if none else build_model(args)
     data = data_io.load_interactions(args.cache_file)
     logger.info("loaded %s", data)
     train_data, test = data.split_by_user(args.test_ratio, seed=args.seed)
     logger.info("train %s / test %s", train_data, test)
+    if pop is not None:
+        pop_solver = Solver(pop, max_iteration=1, seed=args.seed)
+        pop_solver.train(train_data, test, ["TOPN"])
+    if none:
+        return pop_solver
     solver_cls = SGDSolver if isinstance(model, FISM) else Solver
     solver = solver_cls(model, max_iteration=args.max_iters,
                         eval_iterations=args.eval_iters, seed=args.seed,
@@ -255,7 +266,8 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, float]:
         return {}
 
     if args.task == "train":
-        return train(args).history[-1]
+        solver = train(args)
+        return solver.history[-1] if solver is not None else {}
 
     from cdae_tpu_torch.solver.solver import Solver
     from cdae_tpu_torch.utils import checkpoint as ckpt

@@ -1,6 +1,6 @@
-"""Models of the port: CDAE (dense training and serving), WARP (dense path
-training and serving) and FISM / FISMPair (training and serving), with
-cdae_tpu's registry.
+"""Models of the port: CDAE (dense and sparse training, serving), WARP
+(dense path training and serving), FISM / FISMPair (training and serving)
+and the Popularity baseline, with cdae_tpu's registry.
 
 ``create_model(name, **cfg)`` mirrors cdae_tpu's (the reference app's
 ``--method`` dispatch). Every other model of cdae_tpu's zoo raises
@@ -11,19 +11,21 @@ from cdae_tpu_torch.models.base import ModelState, RecsysModel
 from cdae_tpu_torch.models.cdae import CDAE, CDAEConfig
 from cdae_tpu_torch.models.fism import FISM, FISMConfig, FISMPair
 from cdae_tpu_torch.models.mf import WARP, MFConfig
+from cdae_tpu_torch.models.popularity import Popularity
 
 MODEL_REGISTRY = {
     "CDAE": (CDAE, CDAEConfig),
     "WARP": (WARP, MFConfig),
     "FISM": (FISM, FISMConfig),
     "FISMPAIR": (FISMPair, FISMConfig),
+    "POP": (Popularity, None),
 }
 
 # cdae_tpu's other registry names -> the ROADMAP entry that ports them
 LATER_MODELS = {
     "PMF": "A8", "IMF": "A8", "BPR": "A8",
     "ALS": "A9", "WRMF": "A9", "NEGMF": "A9", "LINEAR": "A9", "FM": "A9",
-    "POP": "A9", "ITEMCF": "A9", "USERCF": "A9",
+    "ITEMCF": "A9", "USERCF": "A9",
 }
 
 
@@ -38,10 +40,12 @@ def create_model(name: str, device="cuda", **cfg):
     if key not in MODEL_REGISTRY:
         raise ValueError(
             f"unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}")
-    cls, _ = MODEL_REGISTRY[key]
+    cls, cfg_cls = MODEL_REGISTRY[key]
+    if cfg_cls is None:  # no knobs (Popularity)
+        return cls(device=device)
     return cls(device=device, **cfg)
 
 
 __all__ = ["RecsysModel", "ModelState", "MODEL_REGISTRY", "LATER_MODELS",
            "create_model", "CDAE", "CDAEConfig", "WARP", "MFConfig", "FISM",
-           "FISMPair", "FISMConfig"]
+           "FISMPair", "FISMConfig", "Popularity"]

@@ -79,37 +79,45 @@ def iter_user_batches_csr(
     num_items: int,
     batch_size: int,
     bucket_by_length: bool = True,
+    slots_per_batch: Optional[int] = None,
 ) -> Iterator[UserMinibatch]:
-    """Fixed-size user minibatches straight from CSR, without the full
-    (U, max_len) padded matrix; same batches as ``iter_user_batches``
-    over ``Interactions.padded()``."""
+    """User minibatches straight from CSR, without the full (U, max_len)
+    padded matrix; with a fixed ``batch_size`` the same batches as
+    ``iter_user_batches`` over ``Interactions.padded()``.
+
+    ``slots_per_batch`` (token-budget batching): the batch size adapts per
+    pow-2 length bucket so that B * L stays near the budget, B =
+    clamp(pow2(slots / L), 8, batch_size), one shape per bucket. On a
+    heavy-tailed degree distribution this keeps the long buckets' (B, L, D)
+    gradient temporaries bounded while the short buckets keep large
+    batches; only the minibatch cadence of AdaGrad changes."""
     lengths_all = csr.row_lengths().astype(np.int32)
     U = len(lengths_all)
     global_max = max(int(lengths_all.max()) if U else 1, 1)
     order = (np.argsort(lengths_all, kind="stable") if bucket_by_length
              else np.arange(U))
-    for start in range(0, U, batch_size):
-        sel = order[start : start + batch_size]
-        pad = batch_size - len(sel)
-        weight = np.ones(batch_size, dtype=np.float32)
+
+    def emit(sel, B):
+        pad = B - len(sel)
+        weight = np.ones(B, dtype=np.float32)
         if pad > 0:
             sel = np.concatenate([sel, np.zeros(pad, sel.dtype)])
-            weight[batch_size - pad :] = 0.0
+            weight[B - pad :] = 0.0
         lengths = lengths_all[sel] * weight.astype(np.int32)
         L = min(ceil_pow2(max(int(lengths.max()), 1)), global_max)
-        items = np.full((batch_size, L), num_items, dtype=np.int32)
-        ratings = np.zeros((batch_size, L), dtype=np.float32)
+        items = np.full((B, L), num_items, dtype=np.int32)
+        ratings = np.zeros((B, L), dtype=np.float32)
         counts = np.minimum(lengths, L).astype(np.int64)
         total = int(counts.sum())
         if total:
-            row_of = np.repeat(np.arange(batch_size), counts)
+            row_of = np.repeat(np.arange(B), counts)
             cum0 = np.concatenate([[0], np.cumsum(counts)[:-1]])
             pos = np.arange(total) - np.repeat(cum0, counts)
             src = np.repeat(csr.indptr[sel], counts) + pos
             items[row_of, pos] = csr.indices[src]
             ratings[row_of, pos] = csr.values[src]
         lengths = np.minimum(lengths, L)
-        yield UserMinibatch(
+        return UserMinibatch(
             uids=sel.astype(np.int32),
             items=items,
             ratings=ratings,
@@ -117,6 +125,58 @@ def iter_user_batches_csr(
             lengths=lengths,
             weight=weight,
         )
+
+    if slots_per_batch:
+        if not bucket_by_length:
+            raise ValueError("slots_per_batch requires bucket_by_length")
+        buckets = _length_buckets(lengths_all[order], global_max)
+        for start, end, B in _bucket_runs(buckets, batch_size,
+                                          slots_per_batch):
+            for s in range(start, end, B):
+                yield emit(order[s:min(s + B, end)], B)
+        return
+    for start in range(0, U, batch_size):
+        yield emit(order[start : start + batch_size], batch_size)
+
+
+def _length_buckets(sorted_lengths: np.ndarray, global_max: int
+                    ) -> np.ndarray:
+    """The pow-2 item-axis length of each user, in ascending length order,
+    capped at the longest row as the batches cap it."""
+    pow2 = np.vectorize(ceil_pow2, otypes=[np.int64])(
+        np.maximum(sorted_lengths, 1))
+    return np.minimum(pow2, global_max)
+
+
+def _bucket_runs(buckets: np.ndarray, batch_size: int, slots: int):
+    """(start, end, B) of each length bucket of the sorted users, with the
+    bucket's batch size fit to the ``slots`` budget."""
+    start, U = 0, len(buckets)
+    while start < U:
+        Lb = int(buckets[start])
+        end = start + int(np.searchsorted(buckets[start:], Lb, "right"))
+        B = slots // max(Lb, 1)
+        B = max(8, min(batch_size, 1 << max(int(B).bit_length() - 1, 3)))
+        yield start, end, B
+        start = end
+
+
+def count_user_batches_csr(
+    csr,
+    batch_size: int,
+    slots_per_batch: Optional[int] = None,
+) -> int:
+    """The number of batches ``iter_user_batches_csr`` yields for the same
+    arguments, from the row lengths alone (no batch arrays), so a caller
+    can stride over an epoch without building it."""
+    lengths_all = csr.row_lengths().astype(np.int32)
+    U = len(lengths_all)
+    if not slots_per_batch:
+        return -(-U // batch_size) if U else 0
+    global_max = max(int(lengths_all.max()) if U else 1, 1)
+    buckets = _length_buckets(np.sort(lengths_all), global_max)
+    return sum(-(-(end - start) // B) for start, end, B
+               in _bucket_runs(buckets, batch_size, slots_per_batch))
 
 
 def resolve_device(device) -> torch.device:

@@ -8,6 +8,16 @@ adagrad_update (the W, b', b sweep, one launch a step), or with
 ``fused_step=True`` the fused step of ops/cdae_fused.py; scoring runs the
 decode and fused top-k kernels.
 
+Training has two steps, as in cdae_tpu. While the int8 (U, I) interaction
+matrix fits (the auto rule below), the dense step works on (B, I) slabs
+with matmuls. Past it -- ML-20M at D=200, a 1M-item catalog -- the sparse
+step works on each batch's padded (B, L) rated rows: gathers of the rated
+rows, exact complement negatives in num_neg chunks of (B, L) or one pooled
+draw of ``neg_pool`` ids a batch, and row aggregations of the gradients.
+Every aggregation runs ``ops/scatter.py:scatter_add_rows`` over one plan
+per id vector: kernel B8 on the card with ``use_pallas``, so its sums run
+in a fixed order and a sparse run is the same bits on every run.
+
 Model math (as in cdae_tpu):
   h   = s * sum_{i in rated} W_i   (* U_u if linear_function)
   h  += b (+ W^u_u if user_factor)
@@ -27,9 +37,6 @@ checkpoint's step replays the same draws. With ``fast_rng`` (default on CUDA) th
 the TPU); without it from a ``torch.Generator`` seeded with the step seed.
 The step functions also take injected uniforms, so tests feed them the
 very draws cdae_tpu makes.
-
-Only dense mode (the int8 (U, I) ``dense_R``) trains here; the huge-catalog
-sparse step is ROADMAP A7, a later slice.
 
 Parameter init: U(-s, s) with s = 4 * sqrt(6 / (num_items + num_dim)),
 AdaGrad accumulators at 1e-4. The draws come from a ``torch.Generator``,
@@ -68,6 +75,8 @@ from cdae_tpu_torch.ops.pallas_kernels import (
     streaming_topk_scores,
 )
 from cdae_tpu_torch.ops.penalties import Penalty
+from cdae_tpu_torch.ops.sampling import hw_randint, is_rated, sample_unrated
+from cdae_tpu_torch.ops.scatter import row_plan, scatter_add_rows
 from cdae_tpu_torch.solver.optimizer import (
     ADAGRAD_INIT,
     dense_adagrad_step,
@@ -76,12 +85,6 @@ from cdae_tpu_torch.solver.optimizer import (
 )
 from cdae_tpu_torch.utils.random import step_seed
 
-_SPARSE_SLICE = (
-    "CDAE training without dense_R (the huge-catalog sparse step, ROADMAP "
-    "A7) is not ported to cdae_tpu_torch yet: it comes with a later slice. "
-    "Dense mode trains: CDAEConfig(dense_mode=True), or the auto rule when "
-    "the int8 (U, I) matrix fits"
-)
 _LOSS_STREAM = -1  # the seed stream of data_loss draws (not the solver's)
 _MASK32 = 0xFFFFFFFF
 
@@ -89,9 +92,25 @@ _MASK32 = 0xFFFFFFFF
 @dataclasses.dataclass(frozen=True)
 class CDAEConfig:
     """Every field of cdae_tpu's CDAEConfig, so CLI flags and checkpoints
-    carry over. The knobs of the sparse train step (cache_device_batches,
-    neg_pool, row_update, packed_io) are kept and unused until it is
-    ported (ROADMAP A7)."""
+    carry over. ``dense_mode``: None picks the dense step while the int8
+    (U, I) matrix and the step's (B, I) slabs fit (``_DENSE_MAX_CELLS``,
+    ``_DENSE_MAX_SLAB_BYTES``), else the sparse step. The sparse step's
+    knobs:
+
+    - ``neg_pool`` (K): one pool of K uniform item ids a batch, each user
+      keeping a pool id with q_u = num_neg*|O_u|*I / (K*(I - |O_u|)), so an
+      unrated item's expected touches equal exact sampling's; None = exact
+      complement sampling, num_neg * L draws a user.
+    - ``row_update``: AdaGrad on only the touched W / V / b' rows, by
+      duplicate-safe delta-adds in the reference's touch order, instead of
+      the dense apply over the whole tables; None = off.
+    - ``packed_io``: None or True (the tied decoder, no row_update) adds the
+      positives' output- and input-side gradients before their one
+      aggregation with b'; False aggregates them apart. Only the order of
+      the f32 sums differs.
+    - ``cache_device_batches``: keep the epoch's batches on the device
+      (default), else build them anew each epoch.
+    """
 
     lambda_: float = 0.01
     learn_rate: float = 0.1
@@ -115,15 +134,15 @@ class CDAEConfig:
     compute_dtype: Any = None  # matmul operand dtype (sums stay f32); None =
     # dtype
     stream_batches: Optional[bool] = None  # None = auto when U*max_len > 2e8
-    cache_device_batches: bool = True  # sparse training only
+    cache_device_batches: bool = True  # sparse training
     fast_rng: Optional[bool] = None  # hash masks (hw_uniform) for the dense
     # step; None = on CUDA
     dense_mode: Optional[bool] = None  # int8 (U, I) dense_R; None = auto
     fused_step: Optional[bool] = None  # the fused step kernel (B4); None =
     # off, as in cdae_tpu
-    neg_pool: Optional[int] = None  # sparse training only
-    row_update: Optional[bool] = None  # sparse training only
-    packed_io: Optional[bool] = None  # sparse training only (a TPU layout)
+    neg_pool: Optional[int] = None  # sparse training: pooled negatives
+    row_update: Optional[bool] = None  # sparse training: touched rows only
+    packed_io: Optional[bool] = None  # sparse training: sum order
     dtype: Any = torch.float32
 
 
@@ -131,11 +150,22 @@ class CDAEConfig:
 # this many score cells; above it the blockwise paths take over (tests
 # lower this to drive the huge-catalog modes at fixture scale)
 _TOPK_DEFER_CELLS = 200_000_000
+# the auto rule of dense_mode (cdae_tpu's): the int8 dense_R holds U * I
+# cells, and a dense step's ~10 f32 (B, I) slabs take batch_size * I * 40
+# bytes (tests lower these to drive the sparse step at fixture scale)
+_DENSE_MAX_CELLS = 1_500_000_000
+_DENSE_MAX_SLAB_BYTES = 4_000_000_000
+# hw_randint salts of the sparse step's integer draws (its uniforms are
+# hw_uniform draws 0, the corruption, and 1, the pool selection)
+_NEG_SALT = 0x5EED0001
+_POOL_SALT = 0x5EED0002
 
 
 class CDAEState(ModelState):
     """CDAE parameters + data views; ``aux`` holds the CSR view and, in
-    dense mode, the int8 (U, I) interaction matrix ``dense_R``."""
+    dense mode, the int8 (U, I) interaction matrix ``dense_R`` (without it
+    training takes the sparse step, whose cached batches are
+    ``device_batches``)."""
 
 
 def _activation(h: torch.Tensor, linear: bool, tanh: bool) -> torch.Tensor:
@@ -213,8 +243,8 @@ class CDAE(RecsysModel):
         if dense is None:
             # int8 dense_R (U*I bytes) and ~10 f32 (B, I) slabs per batch
             dense = (
-                U * I <= 1_500_000_000
-                and cfg.batch_size * I * 40 <= 4_000_000_000
+                U * I <= _DENSE_MAX_CELLS
+                and cfg.batch_size * I * 40 <= _DENSE_MAX_SLAB_BYTES
             )
         if dense:
             R = torch.zeros((U, I), dtype=torch.int8, device=dev)
@@ -239,19 +269,66 @@ class CDAE(RecsysModel):
             )
         return state.aux["dense_batches"]
 
-    def train_one_iteration(self, state: CDAEState, seed: int = 0
-                            ) -> CDAEState:
-        """One epoch over every user (see ``train_epochs``)."""
-        return self.train_epochs(state, 1, seed)
+    def _device_batches(self, state: CDAEState):
+        """The sparse step's batches, (uids, items, mask, lengths, weight)
+        tensors on the device in ``_host_batches`` order: built once and
+        kept in ``aux`` (the data do not change between epochs), or anew
+        for each pass with ``cache_device_batches=False``."""
+        if "device_batches" in state.aux:
+            return state.aux["device_batches"]
+        batches = (
+            (self._tensor(b.uids, torch.long), self._tensor(b.items,
+                                                            torch.long),
+             self._tensor(b.mask), self._tensor(b.lengths, torch.long),
+             self._tensor(b.weight))
+            for b in self._host_batches(state))
+        if not self.cfg.cache_device_batches:
+            return batches
+        state.aux["device_batches"] = list(batches)
+        return state.aux["device_batches"]
 
-    def train_epochs(self, state: CDAEState, num_epochs: int, seed: int = 0
-                     ) -> CDAEState:
-        """``num_epochs`` epochs of dense steps: every batch of users,
-        ``num_corruptions`` times each, with step seeds from (``seed``,
-        ``state.step``, batch, corruption). Updates ``state.params`` in
-        place. Only dense mode trains (the sparse step is ROADMAP A7)."""
+    def _sparse_epoch(self, state: CDAEState, seed: int, draws,
+                      by_shape: bool) -> None:
+        """One epoch of sparse steps, ``num_corruptions`` a batch, with
+        step seeds from (``seed``, ``state.step``, batch index, corruption),
+        over the batches in host order or, ``by_shape``, grouped by
+        ascending (B, L) shape with the host order kept within a group;
+        ``draws`` (optional) yields each step's injected draws in turn."""
+        steps = enumerate(self._device_batches(state))
+        if by_shape:
+            steps = sorted(steps, key=lambda jb: tuple(jb[1][1].shape))
+        for j, batch in steps:
+            for c in range(self.cfg.num_corruptions):
+                _train_step(state.params, *batch,
+                            step_seed(seed, state.step, j, c),
+                            cfg=self.cfg, loss=self.loss,
+                            **(next(draws) if draws is not None else {}))
+        state.step += 1
+
+    def train_one_iteration(self, state: CDAEState, seed: int = 0,
+                            draws=None) -> CDAEState:
+        """One epoch over every user. In dense mode ``train_epochs(state,
+        1, seed)``; else the sparse step over the batches in their host
+        order (cdae_tpu's order). ``draws`` (sparse only, optional): an
+        iterator of each step's draws as ``_train_step`` keywords."""
+        if "dense_R" in state.aux:
+            return self.train_epochs(state, 1, seed)
+        self._sparse_epoch(state, seed, draws, by_shape=False)
+        return state
+
+    def train_epochs(self, state: CDAEState, num_epochs: int, seed: int = 0,
+                     draws=None) -> CDAEState:
+        """``num_epochs`` epochs: every batch of users, ``num_corruptions``
+        times each, with step seeds from (``seed``, ``state.step``, batch,
+        corruption). Updates ``state.params`` in place. Dense mode takes
+        the dense step; otherwise the sparse step visits the batches as
+        cdae_tpu's fused epochs do: grouped by shape in ascending (B, L),
+        the host order within a group. ``draws``: as in
+        ``train_one_iteration``."""
         if "dense_R" not in state.aux:
-            raise NotImplementedError(_SPARSE_SLICE)
+            for _ in range(num_epochs):
+                self._sparse_epoch(state, seed, draws, by_shape=True)
+            return state
         R = state.aux["dense_R"]
         uid_mat, w_mat = self._dense_batches(state)
         for _ in range(num_epochs):
@@ -270,21 +347,28 @@ class CDAE(RecsysModel):
                   uniforms=None) -> float:
         """Reconstruction loss over the positives under fresh corruption,
         summed over users. ``sample_size`` is accepted and ignored, as in
-        cdae_tpu. ``uniforms[j][c]`` (optional) are the (B, I) corruption
-        uniforms of batch j, corruption c; by default they are drawn from
-        seeds of (``state.step``, batch, corruption)."""
-        if "dense_R" not in state.aux:
-            raise NotImplementedError(_SPARSE_SLICE)
-        R = state.aux["dense_R"]
-        uid_mat, w_mat = self._dense_batches(state)
+        cdae_tpu. ``uniforms[j][c]`` (optional) are the corruption uniforms
+        of batch j, corruption c -- (B, I) in dense mode, (B, L) over the
+        sparse batches; by default they are drawn from seeds of
+        (``state.step``, batch, corruption)."""
+        sparse = "dense_R" not in state.aux
+        if sparse:
+            batches = self._device_batches(state)
+        else:
+            R = state.aux["dense_R"]
+            batches = zip(*self._dense_batches(state))
         total = 0.0
-        for j in range(uid_mat.shape[0]):
-            total += float(_dense_data_loss(
-                state.params, R, uid_mat[j], w_mat[j],
-                step_seed(_LOSS_STREAM, state.step, j, 0),
-                cfg=self.cfg, loss=self.loss,
-                uniforms=None if uniforms is None else uniforms[j],
-            ))
+        for j, batch in enumerate(batches):
+            kw = dict(cfg=self.cfg, loss=self.loss,
+                      uniforms=None if uniforms is None else uniforms[j])
+            seed = step_seed(_LOSS_STREAM, state.step, j, 0)
+            if sparse:
+                uids, items, mask, _, weight = batch
+                loss = _data_loss_batch(state.params, uids, items, mask,
+                                        weight, seed, **kw)
+            else:
+                loss = _dense_data_loss(state.params, R, *batch, seed, **kw)
+            total += float(loss)
         return total
 
     def penalty_loss(self, state: CDAEState) -> float:
@@ -414,12 +498,15 @@ def _mm(a: torch.Tensor, b: torch.Tensor, cfg: CDAEConfig) -> torch.Tensor:
     return _operand(a, cfg) @ _operand(b, cfg)
 
 
-def _hidden(params, uids, items, keep_mask, scale, cfg: CDAEConfig
-            ) -> torch.Tensor:
+def _hidden(params, uids, items, keep_mask, scale, cfg: CDAEConfig,
+            rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """z = act(scale * sum W_i (* Uu) + b (+ Wu)) over a padded (B, L)
-    item block; ``keep_mask`` selects the live entries."""
+    item block; ``keep_mask`` selects the live entries. ``rows``
+    (optional): W[clip(items)], gathered already (the sparse step gathers
+    them once for the encoder, the tied decoder and the input gradients)."""
     W = params["W"]
-    rows = W[items.long().clamp(0, W.shape[0] - 1)]  # (B, L, D)
+    if rows is None:
+        rows = W[items.long().clamp(0, W.shape[0] - 1)]  # (B, L, D)
     h = torch.einsum("bld,bl->bd", _operand(rows, cfg),
                      _operand(keep_mask, cfg))
     h = h.to(W.dtype) * scale
@@ -735,4 +822,325 @@ def _dense_data_loss(params, dense_R, uids, weight, seed: int, *,
         z = _activation(h, cfg.linear, cfg.tanh)
         pred = _mm(z, table.t(), cfg).to(dt) + params["b_prime"][None, :]
         total = total + torch.sum(loss.evaluate(pred, 1.0) * rows)
+    return total / ncorr
+
+
+# ======================================================== sparse training ===
+
+def _scatter_mode(cfg: CDAEConfig) -> str:
+    """The sparse step's row aggregations: ``pallas`` -- kernel B8 on the
+    card, its plain version on the CPU -- with ``use_pallas``, else
+    ``scatter``, one ``index_add_``. Both sum in ascending position on the
+    CPU; only B8 sums in a fixed order on the card."""
+    return "pallas" if cfg.use_pallas else "scatter"
+
+
+def _decode_at(params, z, item_ids, cfg: CDAEConfig):
+    """(predictions, decoder rows) of the given item ids: y_o = (V|W)_o . z
+    + b'_o over (B, N) ids, clipped into the catalog."""
+    table = params["V"] if cfg.asymmetric else params["W"]
+    ids = item_ids.clamp(0, table.shape[0] - 1)
+    rows = table[ids]  # (B, N, D)
+    preds = torch.einsum("bnd,bd->bn", _operand(rows, cfg),
+                         _operand(z, cfg)).to(table.dtype)
+    return preds + params["b_prime"][ids], rows
+
+
+def _sparse_draws(seed: int, items, lengths, I: int, cfg: CDAEConfig):
+    """The sparse step's draws from its seed, as ``_train_step`` keywords:
+    the (B, L) corruption uniforms ``u_keep``, then the exact negatives
+    ``neg`` (B, num_neg * L) or the pool ids ``pool`` (K,) with their
+    (B, K) selection uniforms ``u_sel``. With ``fast_rng`` the uniforms are
+    hw_uniform draws 0 and 1 of the seed and the ids hw_randint draws with
+    their own salts (kernel B1 with ``use_pallas``); otherwise a generator
+    seeded with the seed draws them in that order."""
+    B, L = items.shape
+    dev = items.device
+    q = cfg.corruption_ratio
+    out = {}
+    gen = None
+    if not cfg.fast_rng:
+        gen = torch.Generator(device=dev).manual_seed(int(seed) & _MASK32)
+    if q > 0.0:
+        out["u_keep"] = (_draw_uniforms(seed, (B, L), [0], cfg, dev)[0]
+                         if cfg.fast_rng else
+                         torch.rand((B, L), generator=gen, device=dev))
+    if cfg.neg_pool:
+        K = int(cfg.neg_pool)
+        if cfg.fast_rng:
+            out["pool"] = hw_randint(seed, (1, K), I, salt=_POOL_SALT,
+                                     device=dev,
+                                     use_kernel=bool(cfg.use_pallas))[0]
+            out["u_sel"] = _draw_uniforms(seed, (B, K), [1], cfg, dev)[0]
+        else:
+            out["pool"] = torch.randint(0, I, (K,), generator=gen,
+                                        device=dev)
+            out["u_sel"] = torch.rand((B, K), generator=gen, device=dev)
+    elif cfg.num_neg > 0:
+        shape = (B, cfg.num_neg * L)
+        free = torch.clamp(I - lengths, min=1)[:, None]
+        if cfg.fast_rng:
+            u = hw_randint(seed, shape, free, salt=_NEG_SALT, device=dev,
+                           use_kernel=bool(cfg.use_pallas))
+        else:
+            r = torch.rand(shape, generator=gen, dtype=torch.float64,
+                           device=dev)
+            u = torch.minimum((r * free).to(torch.int64), free - 1)
+        out["neg"] = sample_unrated(seed, items, lengths, I, shape[1], u=u)
+    return out
+
+
+def _train_step(
+    params: Dict[str, torch.Tensor],
+    uids: torch.Tensor,  # (B,) long
+    items: torch.Tensor,  # (B, L) long, ascending, padded with num_items
+    mask: torch.Tensor,  # (B, L) bool
+    lengths: torch.Tensor,  # (B,)
+    weight: torch.Tensor,  # (B,) 0/1
+    seed: int,  # the step seed (step_seed)
+    *,
+    cfg: CDAEConfig,
+    loss: Loss,
+    keep: Optional[torch.Tensor] = None,  # (B, L) bool corruption keep mask
+    u_keep: Optional[torch.Tensor] = None,  # (B, L) its uniforms
+    neg: Optional[torch.Tensor] = None,  # (B, num_neg * L) exact negatives
+    pool: Optional[torch.Tensor] = None,  # (K,) pooled negative ids
+    u_sel: Optional[torch.Tensor] = None,  # (B, K) pool selection uniforms
+) -> Dict[str, torch.Tensor]:
+    """One sparse minibatch step (cdae_tpu's ``_train_step``): the batched
+    per-user corruption, encode, decode at the positives and the sampled
+    negatives, loss gradients and AdaGrad. Updates ``params`` IN PLACE and
+    returns it.
+
+    Every gradient is taken from the pre-update parameters, then applied:
+    W, b', V and b in one ``dense_adagrad_steps`` call (one launch of
+    kernel B2 with ``use_pallas``) -- or, with ``row_update``, the touched
+    W / V / b' rows in the reference's order (positive outputs, negative
+    outputs, b', input rows) and b alone in B2 -- then the Wu and Uu rows.
+    Each row aggregation sums over one plan per id vector (the positives,
+    each negative chunk, the pool; ``_scatter_mode``), where an id of
+    num_items (padding, an empty complement) contributes nothing.
+
+    The draws come from ``seed`` (``_sparse_draws``) unless injected: the
+    keep mask (``keep``, or its uniforms ``u_keep``: kept where u > q), the
+    exact negatives ``neg``, or the ``pool`` ids and their selection
+    uniforms ``u_sel``."""
+    W = params["W"]
+    I, D = W.shape
+    B, L = items.shape
+    dt = W.dtype
+    lam, lr, beta = cfg.lambda_, cfg.learn_rate, cfg.beta
+    q = cfg.corruption_ratio
+    sm = _scatter_mode(cfg)
+    use_row = bool(cfg.row_update)
+    pack = cfg.packed_io is not False and not cfg.asymmetric and not use_row
+    items = items.long()
+    need_keep = keep is None and u_keep is None and q > 0.0
+    need_neg = ((pool is None or u_sel is None) if cfg.neg_pool
+                else neg is None and cfg.num_neg > 0)
+    if need_keep or need_neg:
+        drawn = _sparse_draws(seed, items, lengths, I, cfg)
+        u_keep = drawn.get("u_keep") if need_keep else u_keep
+        if need_neg:
+            neg, pool, u_sel = (drawn.get(k) for k in ("neg", "pool",
+                                                        "u_sel"))
+    if keep is None:
+        keep = mask & (u_keep > q) if q > 0.0 else mask
+    live_user = weight[:, None] > 0
+    keep = keep & live_user
+    w_user = weight.to(dt)
+    mask_f = mask.to(dt) * w_user[:, None]
+    keep_f = keep.to(dt)
+    items_c = items.clamp(0, I - 1)
+    scale = input_scale(q, cfg.scaled)
+
+    # ---- forward: one gather of the positives' W rows serves the encoder,
+    # the tied decoder and the input-side gradients
+    enc_rows = W[items_c]  # (B, L, D)
+    z = _hidden(params, uids, items, keep, scale, cfg, rows=enc_rows)
+    dz = _z_one_minus_z(z, cfg)
+
+    # ---- positives (truth 1)
+    if cfg.asymmetric:
+        pred_pos, dec_pos = _decode_at(params, z, items, cfg)
+    else:
+        dec_pos = enc_rows
+        pred_pos = torch.einsum("bld,bd->bl", _operand(enc_rows, cfg),
+                                _operand(z, cfg)).to(dt) \
+            + params["b_prime"][items_c]
+    g_pos = loss.gradient(pred_pos, 1.0) * mask_f
+    bp_pos_vals = (g_pos + lam * params["b_prime"][items_c]) * mask_f
+    hidden_grad = torch.einsum("bl,bld->bd", g_pos, dec_pos)
+
+    out_name = "V" if cfg.asymmetric else "W"
+    dec_table = params[out_name]
+    # the negatives' id vectors -- the pool, or each (B, L) chunk of the
+    # exact draws: with row_update their (ids, table grads, b' grads, live)
+    # in order, else one running [table | b'] sum (I, D + 1), each chunk
+    # summed as soon as it is taken
+    neg_sets, neg_sum = [], None
+
+    def add_negatives(ids, table_vals, bp_vals, live):
+        nonlocal neg_sum
+        if use_row:
+            neg_sets.append((ids, table_vals, bp_vals, live))
+            return
+        neg_sum = _aggregate(ids, (table_vals, bp_vals), I, sm, neg_sum)
+    if cfg.neg_pool:
+        K = int(cfg.neg_pool)
+        pool = pool.long()
+        dec_pool = dec_table[pool]  # (K, D)
+        bp_pool = params["b_prime"][pool]
+        pred_pool = _mm(z, dec_pool.t(), cfg).to(dt) + bp_pool[None, :]
+        rated = is_rated(items, lengths, pool)  # (B, K)
+        L_u = lengths.to(torch.float32)
+        q_u = torch.clamp(cfg.num_neg * L_u * I
+                          / (K * torch.clamp(I - L_u, min=1.0)), 0.0, 1.0)
+        sel = ((u_sel < q_u[:, None]) & ~rated & live_user).to(dt)
+        g_pool = loss.gradient(pred_pool, 0.0) * sel
+        touch = sel.sum(dim=0)  # (K,)
+        bp_pool_vals = g_pool.sum(dim=0) + lam * bp_pool * touch
+        table_pool_vals = g_pool.t() @ z + lam * dec_pool * touch[:, None]
+        hidden_grad = hidden_grad + g_pool @ dec_pool
+        add_negatives(pool, table_pool_vals, bp_pool_vals,
+                      torch.ones((K,), dtype=torch.bool, device=pool.device))
+    else:
+        # num_neg chunks of (B, L): one (B, L, D) gather at a time, not
+        # (B, num_neg * L, D) (cdae_tpu measured a 10.5 GB temporary at
+        # B=2048, L=1080, D=200 without the chunks)
+        for k in range(max(cfg.num_neg, 0)):
+            nk = neg[:, k * L:(k + 1) * L].long()
+            pred_nk, dec_nk = _decode_at(params, z, nk, cfg)
+            bp_nk = params["b_prime"][nk.clamp(0, I - 1)]
+            # the sentinel id num_items (an empty complement) is no
+            # negative: its slot carries no gradient
+            nk_live = mask & (nk < I)
+            g_nk = loss.gradient(pred_nk, 0.0) * nk_live.to(dt)
+            bp_nk_vals = (g_nk + lam * bp_nk) * mask_f
+            w_nk_vals = ((g_nk[..., None] * z[:, None, :] + lam * dec_nk)
+                         * mask_f[..., None])
+            hidden_grad = hidden_grad + torch.einsum("bl,bld->bd", g_nk,
+                                                     dec_nk)
+            add_negatives(nk, w_nk_vals, bp_nk_vals, nk_live)
+    hg = hidden_grad * dz  # (B, D)
+
+    # ---- decoder-table gradients of the positives
+    gz_pos = g_pos[..., None] * z[:, None, :]
+    if cfg.asymmetric:
+        out_vals = (gz_pos + lam * dec_pos) * mask_f[..., None]
+    else:
+        # positives kept in the input defer their g.z to the input side;
+        # dropped ones update W directly with g.z + lam.W_o
+        direct = mask_f * (1.0 - keep_f)
+        out_vals = (gz_pos + lam * dec_pos) * direct[..., None]
+
+    # ---- input-side (encoder) gradients of the kept items
+    base = (params["Uu"][uids] * hg if cfg.linear_function else hg) * scale
+    in_grad = (base[:, None, :] + lam * enc_rows
+               + (0.0 if cfg.asymmetric else gz_pos)) * keep_f[..., None]
+    # Uu's gradient reads the pre-update W rows
+    sum_kept_W = (torch.einsum("bld,bl->bd", enc_rows, keep_f)
+                  if cfg.linear_function else None)
+    d_b = w_user.to(torch.float32) @ hg + w_user.sum() * lam * params["b"]
+
+    if use_row:
+        def row_table_step(name, ids, vals, live):
+            n = ids.numel()
+            vals = vals.reshape((n,) + tuple(vals.shape[ids.dim():]))
+            live = live.reshape((n,) + (1,) * (vals.dim() - 1))
+            # dead slots (padding, the sentinel) add nothing to a clipped id
+            row_adagrad_delta(params[name], params[name + "_ag"],
+                              ids.reshape(-1).clamp(0, I - 1), vals, live,
+                              lr, beta, cfg.using_adagrad, mode=sm)
+
+        # the reference's order: positive outputs, negative outputs, b',
+        # then the input rows
+        row_table_step(out_name, items, out_vals, mask)
+        for ids, table_vals, _, live in neg_sets:
+            row_table_step(out_name, ids, table_vals, live)
+        row_table_step("b_prime", items, bp_pos_vals, mask)
+        for ids, _, bp_vals, live in neg_sets:
+            row_table_step("b_prime", ids, bp_vals, live)
+        row_table_step("W", items, in_grad, keep)
+        dense = {"b": d_b}
+    else:
+        dense = _sparse_dense_grads(
+            I, D, items, out_vals, in_grad, bp_pos_vals, neg_sum,
+            pack=pack, asymmetric=cfg.asymmetric, mode=sm)
+        dense["b"] = d_b
+    # every dense gradient is taken: one sweep (one kernel launch)
+    dense_adagrad_steps(
+        [(params[name], params[name + "_ag"], g) for name, g in dense.items()],
+        lr, beta, cfg.using_adagrad, bool(cfg.use_pallas))
+
+    def row_step(name, grad_rows):
+        row_adagrad_delta(params[name], params[name + "_ag"], uids,
+                          grad_rows, live_user, lr, beta, cfg.using_adagrad)
+
+    if cfg.user_factor:
+        row_step("Wu", (hg + lam * params["Wu"][uids]) * w_user[:, None])
+    if cfg.linear_function:
+        row_step("Uu", (lam * params["Uu"][uids] + hg * sum_kept_W)
+                 * w_user[:, None])
+    return params
+
+
+def _aggregate(ids, cols, I: int, mode: str,
+               base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``base`` (default zeros) plus the values of ``cols`` (each (P, ...)
+    over the P entries of ``ids``) side by side, summed at their ids into
+    an (I, C) table: one ``scatter_add_rows`` over one plan of ``ids``."""
+    vals = torch.cat([c.reshape(ids.numel(), -1) for c in cols], dim=1)
+    if base is None:
+        base = torch.zeros((I, vals.shape[1]), dtype=vals.dtype,
+                           device=vals.device)
+    return scatter_add_rows(base, ids, vals, mode=mode,
+                            plan=row_plan(ids.reshape(-1), I, mode))
+
+
+def _sparse_dense_grads(I: int, D: int, items, out_vals, in_grad,
+                        bp_pos_vals, neg_sum, *, pack: bool,
+                        asymmetric: bool, mode: str):
+    """The (I, D) / (I,) gradient tables of the dense apply, from the
+    negatives' [table | b'] sums ``neg_sum`` (or None) and the positives'
+    values, summed in one aggregation over one plan of ``items``: with
+    ``pack`` the output- and input-side gradients are added before it,
+    else summed apart and added after (cdae_tpu's order of adds)."""
+    def plus_neg(col, pos):
+        return pos.contiguous() if neg_sum is None else neg_sum[:, col] + pos
+
+    if pack:
+        pos = _aggregate(items, (out_vals + in_grad, bp_pos_vals), I, mode)
+        return {"W": plus_neg(slice(0, D), pos[:, :D]),
+                "b_prime": plus_neg(D, pos[:, D])}
+    pos = _aggregate(items, (out_vals, in_grad, bp_pos_vals), I, mode)
+    grads = {"b_prime": plus_neg(D, pos[:, 2 * D])}
+    if asymmetric:
+        grads["W"] = pos[:, D:2 * D].contiguous()
+        grads["V"] = plus_neg(slice(0, D), pos[:, :D])
+    else:
+        grads["W"] = plus_neg(slice(0, D), pos[:, :D]) + pos[:, D:2 * D]
+    return grads
+
+
+def _data_loss_batch(params, uids, items, mask, weight, seed: int, *,
+                     cfg: CDAEConfig, loss: Loss, uniforms=None
+                     ) -> torch.Tensor:
+    """Sparse-batch reconstruction loss over the positives, averaged over
+    ``num_corruptions`` corruptions. ``uniforms[c]`` (optional) is the
+    (B, L) corruption draw of corruption c; otherwise draw c of ``seed``."""
+    dt = params["W"].dtype
+    q = cfg.corruption_ratio
+    ncorr = cfg.num_corruptions
+    mask_f = mask.to(dt) * weight.to(dt)[:, None]
+    if uniforms is None and q > 0.0:
+        uniforms = _draw_uniforms(seed, tuple(mask.shape), range(ncorr), cfg,
+                                  mask.device)
+    scale = input_scale(q, cfg.scaled)
+    total = torch.zeros((), dtype=torch.float32, device=mask.device)
+    for c in range(ncorr):
+        keep = mask & (uniforms[c] > q) if q > 0.0 else mask
+        z = _hidden(params, uids, items, keep, scale, cfg)
+        preds, _ = _decode_at(params, z, items.long(), cfg)
+        total = total + torch.sum(loss.evaluate(preds, 1.0) * mask_f)
     return total / ncorr

@@ -1,5 +1,6 @@
-"""On-device integer draws (port of cdae_tpu/ops/sampling.py, the parts the
-WARP dense path and FISM use).
+"""On-device integer draws and the CSR membership test (port of
+cdae_tpu/ops/sampling.py, the parts WARP's dense path, FISM, CDAE's sparse
+step and Popularity use).
 
 ``hw_randint`` is cdae_tpu's uniform int in [0, maxval) built on the
 uniform stream of ``hw_uniform`` (kernel B1) with a salt XORed into the
@@ -13,8 +14,11 @@ counts k in three ways by the number of samples (a compare-sum, a chunked
 scan, a sort-based searchsorted), which all give the same integer; here it
 is one ``torch.searchsorted``.
 
-``is_rated`` (the CSR membership test) serves WARP's scan and pool paths
-and the sparse CDAE step; it comes with those slices (ROADMAP A7, A8).
+``is_rated`` is the CSR membership test of the sparse CDAE step's pooled
+negatives and of Popularity's candidate walk. cdae_tpu compares every
+query with every rated slot (a fused compare on the TPU); here each query
+is one binary search of its row, ``torch.searchsorted``, which gives the
+same booleans for rows sorted ascending.
 """
 
 from __future__ import annotations
@@ -88,3 +92,25 @@ def sample_unrated(
                         sorted_items.to(torch.int64) - pos, num_items)
     k = torch.searchsorted(ranks.contiguous(), u.contiguous(), right=True)
     return u + k
+
+
+def is_rated(
+    sorted_items: torch.Tensor,  # (B, L) ascending, padded with num_items
+    lengths: torch.Tensor,  # (B,) number of real entries per row
+    queries: torch.Tensor,  # (Q,) shared or (B, Q) per-row ids
+) -> torch.Tensor:
+    """Membership of ``queries`` in each row's first ``lengths`` entries;
+    (B, Q) bool."""
+    B, L = sorted_items.shape
+    dev = sorted_items.device
+    q = torch.as_tensor(queries, device=dev).to(torch.int64)
+    q = q.expand(B, -1) if q.dim() == 1 else q
+    if L == 0 or q.shape[1] == 0:
+        return torch.zeros(q.shape, dtype=torch.bool, device=dev)
+    pos = torch.arange(L, device=dev)[None, :]
+    # padding slots above every id, so the row stays sorted and never hits
+    top = torch.iinfo(torch.int64).max
+    rows = torch.where(pos < lengths.to(torch.int64)[:, None],
+                       sorted_items.to(torch.int64), top).contiguous()
+    at = torch.searchsorted(rows, q.contiguous()).clamp_(max=L - 1)
+    return torch.gather(rows, 1, at) == q

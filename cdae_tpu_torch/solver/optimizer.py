@@ -14,11 +14,12 @@ Row ids must lie in [0, N): cdae_tpu's scatters drop out-of-range rows,
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from cdae_tpu_torch.ops import pallas_kernels
+from cdae_tpu_torch.ops.scatter import row_plan, runs_b8, scatter_add_rows
 
 ADAGRAD_INIT = 1e-4
 
@@ -120,6 +121,7 @@ def row_adagrad_delta(
     learn_rate: float,
     beta: float = 0.0,
     use_adagrad: bool = True,
+    mode: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sparse per-row AdaGrad by delta-add, f32 optimizer math.
 
@@ -127,37 +129,66 @@ def row_adagrad_delta(
     touch i of a row sees acc plus the g^2 of the earlier touches of that
     row, an exclusive segmented prefix computed over one stable sort, as in
     the reference's per-touch loop. The prefix is the difference of two
-    exclusive cumsums -- exactly 0 at a row's first touch -- clamped at 0:
-    f32 cancellation could make a later one slightly negative, which would
-    swamp the 1e-4 accumulator init and NaN the sqrt. (cdae_tpu subtracts
-    g^2 back out of the inclusive cumsum, which leaves rounding noise of
-    the size of the whole running sum on every touch.)"""
+    exclusive f64 cumsums -- exactly 0 at a row's first touch, and free of
+    the f32 rounding of the whole batch's running sum at later ones --
+    clamped at 0. (cdae_tpu subtracts g^2 back out of an f32 inclusive
+    cumsum, which leaves rounding noise of the size of the whole running
+    sum on every touch.)
+
+    ``mode`` (an ops/scatter.py mode) sums the deltas and g^2 of each row
+    where ``runs_b8`` says so -- kernel B8 on a CUDA device, so the sums
+    run in a fixed order and the update is the same bits on every run --
+    over one plan of the touches' segment numbers; each row then takes
+    one add. Without it, or for a mode that does not run B8, the touches
+    are ``index_add_``-ed one by one (atomics on the card)."""
     g32 = grad_rows.to(torch.float32)
     live = torch.as_tensor(live, device=g32.device)
-    if not use_adagrad:
+    b8 = mode is not None and runs_b8(mode, rows.device)
+    if not use_adagrad and not b8:
         delta = torch.where(live, -learn_rate * g32, 0.0).to(param.dtype)
         param.index_add_(0, rows, delta)
         return param, acc
-    gsq = torch.where(live, g32 * g32, 0.0)
     n = rows.shape[0]
     order = torch.argsort(rows, stable=True)
     r_s = rows[order]
-    q_s = gsq[order]
-    # exclusive running g^2 in sort order: a shifted copy of the cumsum, so
-    # a row's first touch gets exactly 0 (no f32 cancellation there)
-    excl = torch.zeros_like(q_s)
-    excl[1:] = torch.cumsum(q_s, dim=0)[:-1]
-    idx = torch.arange(n, device=rows.device)
     is_start = torch.ones(n, dtype=torch.bool, device=rows.device)
     is_start[1:] = r_s[1:] != r_s[:-1]
-    start_idx = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
-    excl_prefix = torch.clamp(excl - excl[start_idx], min=0.0)
-    a_rows_s = acc[r_s] + excl_prefix + q_s
-    step_s = learn_rate * g32[order] / (beta + torch.sqrt(a_rows_s))
     live_s = live[order] if live.dim() else live
-    delta_s = torch.where(live_s, -step_s, 0.0).to(param.dtype)
-    param.index_add_(0, r_s, delta_s)
-    acc.index_add_(0, rows, gsq)
+    if use_adagrad:
+        gsq = torch.where(live, g32 * g32, 0.0)
+        q_s = gsq[order]
+        # exclusive running g^2 in sort order, in f64: a shifted copy of
+        # the cumsum, so a row's first touch gets exactly 0, and a later
+        # touch its row's own earlier g^2 without the f32 rounding of the
+        # whole batch's running sum
+        excl = torch.zeros(q_s.shape, dtype=torch.float64,
+                           device=q_s.device)
+        excl[1:] = torch.cumsum(q_s, dim=0, dtype=torch.float64)[:-1]
+        idx = torch.arange(n, device=rows.device)
+        start_idx = torch.cummax(torch.where(is_start, idx, 0),
+                                 dim=0).values
+        excl_prefix = torch.clamp(excl - excl[start_idx], min=0.0).to(
+            torch.float32)
+        a_rows_s = acc[r_s] + excl_prefix + q_s
+        step_s = learn_rate * g32[order] / (beta + torch.sqrt(a_rows_s))
+    else:
+        step_s = learn_rate * g32[order]
+    delta_s = torch.where(live_s, -step_s, 0.0)
+    if not b8:
+        param.index_add_(0, r_s, delta_s.to(param.dtype))
+        acc.index_add_(0, rows, gsq)
+        return param, acc
+    # segment k of the sorted touches is row head[k]; the segments past the
+    # last are zero sums added to row 0 (exact no-ops)
+    seg = torch.cumsum(is_start, dim=0) - 1
+    head = torch.zeros_like(r_s).index_put_((seg,), r_s)
+    plan = row_plan(seg, n, mode)
+    updates = [(param, delta_s)] + ([(acc, q_s)] if use_adagrad else [])
+    for table, vals in updates:
+        sums = scatter_add_rows(
+            torch.zeros(vals.shape, dtype=torch.float32, device=vals.device),
+            seg, vals, mode=mode, plan=plan)
+        table.index_add_(0, head, sums.to(table.dtype))
     return param, acc
 
 

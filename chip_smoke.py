@@ -78,6 +78,23 @@ Phases, each printed as one JSON line:
              mxu route; and with the native gather and index_add (one step
              within 1e-4; the 2-epoch distance and that route's own
              run-to-run spread printed, not gated)
+  CDAE's sparse step (counts from 0 before train_sparse_ml1m, read after
+  train_sparse_1m; B1, B8's plan and reduce, B2):
+    train_sparse_ml1m -- the ML-1M-scale low-rank data, D=50, --dense_mode
+             false, 10 epochs through the CLI --task train, Popularity
+             first: R@10 rises and ends above 0.10 (its distance to
+             train_ml1m's printed)
+    train_sparse_ml20m -- config 3's shape (ML-20M's 138,493 x 26,744,
+             synthetic), D=200, exact negatives, picked by the auto rule:
+             30 length-stratified token-budget batches (262,144 slots),
+             timed after a warm pass, then profiled (launches, B8 plans
+             and reduces a step, idle share, peak memory); TOPN on 2,048
+             held-out users (B3)
+    train_sparse_1m -- config 5's catalog (1,000,000 items, 200,000 users),
+             D=50: the same protocol with neg_pool 8192, then exact
+  sparse_ml1m_checks -- two 2-epoch sparse runs bit for bit; one epoch
+             with the kernels against their plain versions; the corruption-0
+             dense/sparse identity (16 users elementwise, 1024 per table)
 Then the whole run's wall time, the kernel table (each kernel's launches
 from the path that owns it; B8's plan has a row of its own; a kernel timed
 at several shapes lists them all under ``shapes``; bound_ms is the least
@@ -143,12 +160,13 @@ KERNELS = {
                               "cdae_tpu/ops/pallas_kernels.py:641",
                               ("serving",)),
     "hw_uniform": ("pallas_kernels", "cdae_tpu_torch/csrc/hw_uniform.cu",
-                   "cdae_tpu/ops/pallas_kernels.py:178", ("training",)),
+                   "cdae_tpu/ops/pallas_kernels.py:178",
+                   ("training", "sparse_training")),
     "adagrad_update": ("pallas_kernels",
                        "cdae_tpu_torch/csrc/adagrad_update.cu",
                        "cdae_tpu/ops/pallas_kernels.py:108",
                        ("training", "fused_training", "warp_training",
-                        "fism_training", "warp_mxu")),
+                        "fism_training", "warp_mxu", "sparse_training")),
     "cdae_dense_step_fused": ("cdae_fused", "cdae_tpu_torch/csrc/cdae_fused.cu",
                               "cdae_tpu/ops/cdae_fused.py:249",
                               ("fused_training",)),
@@ -156,15 +174,17 @@ KERNELS = {
                              "cdae_tpu_torch/csrc/warp_select.cu",
                              "cdae_tpu/ops/pallas_kernels.py:1028",
                              ("warp_training", "warp_mxu")),
-    # WARP's default route sums through B8 too (scatter_mode "auto")
+    # WARP's default route and CDAE's sparse step sum through B8 too
     "scatter_matmul": ("pallas_kernels", "cdae_tpu_torch/csrc/scatter_rows.cu",
                        "cdae_tpu/ops/pallas_kernels.py:1147",
-                       ("fism_training", "warp_training", "warp_mxu")),
+                       ("fism_training", "warp_training", "warp_mxu",
+                        "sparse_training")),
     # B8's id sort (the TPU kernel contracts one-hot tiles and sorts
     # nothing): a wrapper and a count of its own
     "scatter_plan": ("pallas_kernels", "cdae_tpu_torch/csrc/scatter_rows.cu",
                      "cdae_tpu/ops/pallas_kernels.py:1147",
-                     ("fism_training", "warp_training", "warp_mxu")),
+                     ("fism_training", "warp_training", "warp_mxu",
+                      "sparse_training")),
     "gather_rows_mxu": ("pallas_kernels", "cdae_tpu_torch/csrc/gather_rows.cu",
                         "cdae_tpu/ops/pallas_kernels.py:856", ("warp_mxu",)),
 }
@@ -1219,9 +1239,10 @@ def _host_us(torch, fn, reps: int = 50) -> float:
 def phase_kernel_scatter(torch, held, results):
     """B8 against its plain version at the FISM sparse step's shapes (the
     Q + bi aggregation, (P, 11) and its 1-D bias column, and the P
-    aggregation, (P, 10), of the largest batch of the run's data) and at
-    WARP's (49,152 item rows x 11, 8,192 user rows x 10), with f32 and bf16
-    contributions. The plan must equal its plain version (the library's
+    aggregation, (P, 10), of the largest batch of the run's data), at
+    WARP's (49,152 item rows x 11, 8,192 user rows x 10) and at CDAE's
+    sparse step's (an ML-20M batch's 262,144 ids x 201 columns, a
+    1M-item pool's 8,192 x 51), with f32 and bf16 contributions. The plan must equal its plain version (the library's
     stable sort), two launches on one input must give the same bits, and
     FISM's P sums over the Q + bi plan (limit = the P ids' count) the same
     bits as over their own plan. Times: the wrapper's whole span (plan +
@@ -1242,7 +1263,16 @@ def phase_kernel_scatter(torch, held, results):
              ("warp_item", torch.randint(0, I, (49152,), generator=g,
                                          device=dev), I, 11),
              ("warp_user", torch.randint(0, U, (8192,), generator=g,
-                                         device=dev), U, 10))
+                                         device=dev), U, 10),
+             # CDAE's sparse step: an ML-20M token-budget batch's positives
+             # or negatives ([W | b'] of D=200, padding ids as the
+             # sentinel) and a 1M-item pool's [W | b'] sums (D=50)
+             ("cdae_ml20m_items", torch.randint(0, 29_000, (262_144,),
+                                                generator=g, device=dev),
+              26_744, 201),
+             ("cdae_1m_pool", torch.randint(0, 1_000_000, (8192,),
+                                            generator=g, device=dev),
+              1_000_000, 51))
     bad = []
     for name, idx, N, C in cases:
         Pn = idx.shape[0]
@@ -1633,6 +1663,279 @@ def phase_warp_mxu_vs_native(torch, held):
                 and rel1 <= ROUTE_REL_TOL)
 
 
+# ------------------------------------------------- CDAE's sparse step ----
+
+SPARSE_R10_FLOOR = 0.10  # train_sparse_ml1m's R@10 after 10 epochs
+DENSE_R10 = 0.2248  # train_ml1m's R@10 at epoch 10 (PERF.md section 5)
+SPARSE_SLOTS = 262_144  # the token budget of the stratified protocol
+SPARSE_TIMED = 30  # length-stratified batches timed a cell
+
+
+def phase_train_sparse_ml1m(torch, tmp, held):
+    """CLI --task train on the ML-1M-scale low-rank data with --dense_mode
+    false: Popularity first, then CDAE D=50 through the sparse step (B1's
+    keep masks and negative draws, B8's sums, one B2 launch a step), 10
+    epochs, TOPN at 0, 5 and 10. R@10 must rise and end above
+    SPARSE_R10_FLOOR; its distance to the dense run's is printed."""
+    from cdae_tpu_torch import cli
+    from cdae_tpu_torch.data import io as data_io
+    from cdae_tpu_torch.solver.solver import _params_finite
+
+    cache = os.path.join(tmp, "ml1m_lowrank.bin")
+    data_io.save_interactions(held["ml1m_data"], cache)
+    argv = [a for a in ML1M_TRAIN if a != "--skip_popularity"]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    solver = cli.train(cli.build_arg_parser().parse_args(
+        argv + ["--cache_file", cache, "--dense_mode", "false"]))
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    hist = solver.history
+    finite = _params_finite(solver.state.params)
+    sparse = "dense_R" not in solver.state.aux
+    held["sparse_ml1m"] = solver
+    dense_r10 = (held["ml1m"][0].history[-1]["R@10"] if "ml1m" in held
+                 else DENSE_R10)
+    r10 = hist[-1]["R@10"]
+    return dict(phase="train_sparse_ml1m", users=6040, items=3706, D=50,
+                epochs=10, cli_seconds=cli_s, sparse_step=sparse,
+                steps_per_epoch=len(solver.state.aux["device_batches"]),
+                recall_at_10={int(r["iter"]): r["R@10"] for r in hist},
+                map_at_10={int(r["iter"]): r["MAP@10"] for r in hist},
+                recall_at_10_dense=dense_r10,
+                distance_to_dense=r10 - dense_r10,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                params_finite=finite, floor=SPARSE_R10_FLOOR,
+                ok=finite and sparse and r10 > hist[0]["R@10"]
+                and r10 > SPARSE_R10_FLOOR)
+
+
+def _stratified_batches(torch, csr, num_items, batch_size):
+    """scripts/scale_smoke.py's protocol: SPARSE_TIMED batches spread
+    evenly over the length-sorted, token-budget epoch (so the long tail
+    is in the mix), moved to the card; and the epoch's batch count."""
+    import numpy as np
+
+    from cdae_tpu_torch.models.base import (count_user_batches_csr,
+                                            iter_user_batches_csr)
+
+    total = count_user_batches_csr(csr, batch_size,
+                                   slots_per_batch=SPARSE_SLOTS)
+    n = min(SPARSE_TIMED, total)
+    keep = set(np.linspace(0, total - 1, n).round().astype(int).tolist())
+    dev = torch.device("cuda")
+    out = []
+    for i, b in enumerate(iter_user_batches_csr(
+            csr, num_items, batch_size, slots_per_batch=SPARSE_SLOTS)):
+        if i in keep:
+            out.append(tuple(torch.as_tensor(x, device=dev) for x in (
+                b.uids.astype(np.int64), b.items.astype(np.int64), b.mask,
+                b.lengths.astype(np.int64), b.weight)))
+    return out, total
+
+
+def _sparse_cell(torch, model, state, batches):
+    """A warm pass over ``batches`` (sparse steps), a timed pass (host
+    clock between synchronizes), then a profiled pass: users/s, ms a step,
+    launches a step (device kernels under torch.profiler, and B1, B2, B8's
+    plans and reduces by their counts), idle share, peak memory."""
+    import cdae_tpu_torch.ops.pallas_kernels as P
+    from cdae_tpu_torch.models.cdae import _train_step
+    from cdae_tpu_torch.solver.solver import _params_finite
+
+    def run_pass(offset):
+        for j, batch in enumerate(batches):
+            _train_step(state.params, *batch, SEED + offset + j,
+                        cfg=model.cfg, loss=model.loss)
+
+    run_pass(0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    users = float(sum(b[4].sum().item() for b in batches))
+    t0 = time.perf_counter()
+    run_pass(1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    wrappers = (P.hw_uniform, P.adagrad_update, P.scatter_plan,
+                P.scatter_matmul)
+    before = [w.launches for w in wrappers]
+    prof = _profile(torch, lambda: run_pass(2000))
+    n = len(batches)
+    per = [(w.launches - b) / n for w, b in zip(wrappers, before)]
+    prof["launches_per_step"] = prof.pop("device_kernels") / n
+    for key, v in zip(("b1", "b2", "b8_plans", "b8_reduces"), per):
+        prof[f"{key}_per_step"] = v
+    finite = _params_finite(state.params)
+    return dict(steps=n, timed_users=users, seconds=wall,
+                users_per_s=users / wall,
+                ms_per_step=wall * 1e3 / n, peak_mem_gb=peak,
+                shapes=sorted({tuple(b[1].shape) for b in batches}),
+                params_finite=finite, profiled_pass=prof,
+                ok=finite and per[1] == 1.0 and per[2] > 0 and per[3] > 0)
+
+
+def phase_train_sparse_ml20m(torch, held):
+    """config 3's shape: ML-20M's dimensions (138,493 users x 26,744 items,
+    mean degree 144; synthetic, ML-20M is not in the repo), D=200, exact
+    negatives (num_neg 5), batch 1024 with the 262,144-slot budget. The
+    auto rule must pick the sparse step. Then TOPN on 2,048 held-out
+    users (the (B, I) decode, B3)."""
+    import numpy as np
+
+    from cdae_tpu_torch.data.dataset import Interactions
+    from cdae_tpu_torch.data.synthetic import synthetic_interactions
+    from cdae_tpu_torch.evaluation import RecListEvaluation
+    from cdae_tpu_torch.models.cdae import CDAE, CDAEConfig
+    from cdae_tpu_torch.ops import metrics
+
+    t0 = time.perf_counter()
+    setup = {}
+
+    def lap(name):
+        setup[name] = time.perf_counter() - t0 - sum(setup.values())
+
+    data = synthetic_interactions(138_493, 26_744, 144, seed=SEED)
+    lap("data")
+    train, test = data.split_by_user(0.2, seed=SEED)
+    lap("split")
+    # stream_batches: the step's batches come from the CSR, so the reset
+    # builds no (U, max_len) padded matrix (the protocol never reads it)
+    model = CDAE(CDAEConfig(num_dim=200, corruption_ratio=0.5, scaled=True,
+                            num_neg=5, loss="SQUARE", batch_size=1024,
+                            beta=1.0, stream_batches=True), device="cuda")
+    state = model.reset(train, seed=SEED)
+    torch.cuda.synchronize()
+    lap("reset")
+    batches, total = _stratified_batches(torch, state.aux["csr"],
+                                         train.num_items, 1024)
+    torch.cuda.synchronize()
+    lap("batches")
+    out = dict(phase="train_sparse_ml20m", users=train.num_users,
+               items=train.num_items, interactions=len(train), D=200,
+               num_neg=5, batch=1024, slots=SPARSE_SLOTS,
+               epoch_batches=total, setup_s=setup,
+               sparse_step="dense_R" not in state.aux)
+    cell = _sparse_cell(torch, model, state, batches)
+    del batches
+    keep = test.users < np.sort(np.unique(test.users))[2047] + 1
+    held_out = Interactions.from_arrays(
+        test.users[keep], test.items[keep], test.ratings[keep],
+        num_users=test.num_users, num_items=test.num_items)
+    ev = RecListEvaluation("TOPN", batch_size=1024)
+    ev.evaluate(model, state, held_out, train)  # builds the eval batches
+    res = ev.evaluate(model, state, held_out, train)
+    cols = [res[c] for c in metrics.TOPN_COLUMNS]
+    out.update(cell, val_users=ev._cache[0], test_time_s=res["TestTime"],
+               topn=dict(zip(metrics.TOPN_COLUMNS, cols)),
+               seconds=time.perf_counter() - t0)
+    out["ok"] = (cell["ok"] and out["sparse_step"] and ev._cache[0] == 2048
+                 and all(map(_finite, cols)))
+    return out
+
+
+def phase_train_sparse_1m(torch):
+    """config 5's catalog: 1,000,000 items, D=50 (200,000 users of mean
+    degree 50; config 5's 10M users cut to what the smoke's time allows),
+    the stratified protocol with pooled negatives (neg_pool 8192), then
+    with exact ones."""
+    from cdae_tpu_torch.data.synthetic import synthetic_interactions
+    from cdae_tpu_torch.models.cdae import CDAE, CDAEConfig
+
+    t0 = time.perf_counter()
+    data = synthetic_interactions(200_000, 1_000_000, 50, seed=SEED)
+    out = dict(phase="train_sparse_1m", users=data.num_users,
+               items=data.num_items, interactions=len(data), D=50,
+               batch=1024, slots=SPARSE_SLOTS)
+    batches, out["epoch_batches"] = _stratified_batches(
+        torch, data.csr(), data.num_items, 1024)
+    ok = True
+    for name, pool in (("pool_8192", 8192), ("exact", None)):
+        model = CDAE(CDAEConfig(num_dim=50, corruption_ratio=0.5,
+                                scaled=True, num_neg=5, loss="SQUARE",
+                                batch_size=1024, beta=1.0, neg_pool=pool,
+                                stream_batches=True), device="cuda")
+        state = model.reset(data, seed=SEED)
+        cell = _sparse_cell(torch, model, state, batches)
+        cell["sparse_step"] = "dense_R" not in state.aux
+        ok = ok and cell["ok"] and cell["sparse_step"]
+        out[name] = cell
+        del state
+    out["seconds"] = time.perf_counter() - t0
+    out["ok"] = ok
+    return out
+
+
+def phase_sparse_ml1m_checks(torch, held):
+    """From train_sparse_ml1m's configuration and one reset: two runs of 2
+    epochs bit for bit (B8 sums in a fixed order); one epoch with the
+    kernels against one with their plain versions (use_pallas off: the
+    same hash draws, index_add_ sums, the plain AdaGrad), within
+    ROUTE_REL_TOL per table; and, with corruption 0 and no negatives, one
+    sparse step against one dense step on the same users: at cdae_tpu's
+    identity test's batch of 16 users (tests/test_dense_mode.py) every
+    entry within rtol 2e-5 / atol 1e-6, at the run's batch of 1024 users
+    each table within ROUTE_REL_TOL (a gradient then sums ~10^3 terms that
+    cancel, in another order than the dense step's GEMM)."""
+    import dataclasses
+
+    from cdae_tpu_torch.models.base import iter_user_batches
+    from cdae_tpu_torch.models.cdae import (CDAE, _dense_train_step,
+                                            _train_step)
+
+    cfg = held["sparse_ml1m"].model.cfg
+    train = held["ml1m"][1][0] if "ml1m" in held else \
+        held["ml1m_data"].split_by_user(0.2, seed=SEED)[0]
+
+    def epochs(n, **kw):
+        model = CDAE(dataclasses.replace(cfg, **kw), device="cuda")
+        state = model.reset(train, seed=SEED)
+        model.train_epochs(state, n, SEED)
+        torch.cuda.synchronize()
+        return state.params
+
+    a, b = epochs(2), epochs(2)
+    bit_equal = all(torch.equal(a[k], b[k]) for k in a)
+    rel = _rel_diff(torch, epochs(1), epochs(1, use_pallas=False))
+
+    def one_step(batch_size):
+        out = {}
+        for dense in (False, True):
+            model = CDAE(dataclasses.replace(
+                cfg, dense_mode=dense, corruption_ratio=0.0, num_neg=0,
+                bucket_by_length=False, batch_size=batch_size),
+                device="cuda")
+            state = model.reset(train, seed=SEED)
+            mb = next(iter_user_batches(state.padded, batch_size))
+            uids, items, mask, lengths, weight = (
+                torch.as_tensor(x, device="cuda") for x in (
+                    mb.uids, mb.items, mb.mask, mb.lengths, mb.weight))
+            if dense:
+                _dense_train_step(state.params, state.aux["dense_R"],
+                                  uids.long(), weight, SEED, cfg=model.cfg,
+                                  loss=model.loss)
+            else:
+                _train_step(state.params, uids.long(), items.long(), mask,
+                            lengths.long(), weight, SEED, cfg=model.cfg,
+                            loss=model.loss)
+            out[dense] = state.params
+        return out[False], out[True]
+
+    sparse16, dense16 = one_step(16)
+    excess = max(((sparse16[k] - dense16[k]).abs() - 1e-6
+                  - 2e-5 * dense16[k].abs()).max().item() for k in dense16)
+    rel1024 = _rel_diff(torch, *one_step(1024))
+    return dict(phase="sparse_ml1m_checks", runs_bit_equal=bit_equal,
+                rel_diff_vs_plain=rel, tol=ROUTE_REL_TOL,
+                dense_identity_16_max_abs_diff=max(
+                    (sparse16[k] - dense16[k]).abs().max().item()
+                    for k in dense16),
+                dense_identity_16_ok=excess <= 0.0,
+                dense_identity_1024_rel_diff=rel1024,
+                ok=bit_equal and rel <= ROUTE_REL_TOL and excess <= 0.0
+                and rel1024 <= ROUTE_REL_TOL)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1750,6 +2053,20 @@ def main() -> int:
                                                                    held))
     else:
         failed.append("WARP mxu phases (no WARP run to build on)")
+    if "ml1m_data" in held:
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts("sparse_training")
+            run("train_sparse_ml1m",
+                lambda: phase_train_sparse_ml1m(torch, tmp, held))
+            run("train_sparse_ml20m",
+                lambda: phase_train_sparse_ml20m(torch, held))
+            run("train_sparse_1m", lambda: phase_train_sparse_1m(torch))
+            read_counts("sparse_training", launches, failed)
+    if "sparse_ml1m" in held:
+        run("sparse_ml1m_checks",
+            lambda: phase_sparse_ml1m_checks(torch, held))
+    else:
+        failed.append("sparse CDAE phases (no sparse run to build on)")
     emit(dict(phase="wall", seconds=time.perf_counter() - t_start))
 
     table = []

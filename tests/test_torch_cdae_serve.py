@@ -196,9 +196,13 @@ def test_predict_and_user_representations_match(splits, trained):
 
 
 def test_training_raises_not_implemented(splits):
-    """Training without dense_R (the huge-catalog sparse step) is a later
-    slice, ROADMAP A7; dense mode trains."""
+    """Training without dense_R (the huge-catalog sparse step, once a later
+    slice that raised here) now runs: one epoch advances the step and keeps
+    the serving path's scores finite."""
     tm = tcdae.CDAE(tcdae.CDAEConfig(**BASE, dense_mode=False), device="cpu")
     ts = tm.reset(splits[2], seed=0)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tm.train_one_iteration(ts)
+    tm.train_one_iteration(ts)
+    assert ts.step == 1 and "dense_R" not in ts.aux
+    uids = np.arange(4)
+    rated, mask = tm._user_rows(ts, uids)
+    assert torch.isfinite(tm.batch_scores(ts, uids, rated, mask)).all()

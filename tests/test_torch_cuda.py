@@ -9,7 +9,9 @@ its tiles and catalog splits), and the row aggregation (B8: its plan equal
 to the library's stable sort; its reduce to summation-order tolerance and
 the same bits on every launch and over a shared plan; every fixed-order
 scatter mode routed to it) and row gather (B9, exact at every width) with
-the paths that launch them, and two default-route WARP runs bit for bit.
+the paths that launch them, two default-route WARP runs bit for bit, and
+CDAE's sparse step (its epoch with the kernels against their plain
+versions, two runs bit for bit, the corruption-0 dense/sparse identity).
 Every test is marked ``cuda`` and skips when torch.cuda.is_available() is
 False (the kernels have no CPU mode).
 
@@ -944,3 +946,100 @@ def test_training_paths_launch_adagrad_once_a_step(cuda, path):
     steps = state.aux["dense_batches"][0].shape[0]
     assert steps > 1
     assert P.adagrad_update.launches == before + steps
+
+
+# ------------------------------------------------- CDAE's sparse step ----
+
+def _sparse_cdae(device, **kw):
+    """A CDAE on low-rank data (dense_mode False unless ``kw`` says), and
+    its reset state."""
+    from cdae_tpu_torch.data.synthetic import lowrank_interactions
+    from cdae_tpu_torch.models.cdae import CDAE, CDAEConfig
+
+    data = lowrank_interactions(300, 500, 30, seed=3)
+    cfg = dict(num_dim=16, corruption_ratio=0.5, num_neg=3, batch_size=64,
+               loss="SQUARE", dense_mode=False)
+    model = CDAE(CDAEConfig(**{**cfg, **kw}), device=device)
+    return model, model.reset(data, seed=1)
+
+
+_SPARSE_CASES = {"exact": {}, "pool": dict(neg_pool=256),
+                 "asymmetric": dict(asymmetric=True),
+                 "unpacked": dict(packed_io=False),
+                 "row_update": dict(row_update=True),
+                 "row_update_pool": dict(row_update=True, neg_pool=256)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_SPARSE_CASES))
+def test_cdae_sparse_epoch_kernels_match_plain(cuda, case):
+    """One sparse epoch with the kernels (B1's hash draws, B8's sums, B2)
+    against one with their plain versions (use_pallas off: the same hash
+    draws, index_add_ sums, the plain AdaGrad) from the same reset: every
+    table within 1e-4 relative (the sums run in another order); the
+    kernel run launches B2 once a step and B8 and B1 every step, the plain
+    run none of them."""
+    kw = dict(_SPARSE_CASES[case], fast_rng=True)
+    params = {}
+    for use_pallas in (True, False):
+        model, state = _sparse_cdae("cuda", use_pallas=use_pallas, **kw)
+        assert "dense_R" not in state.aux
+        counts = (P.adagrad_update.launches, P.scatter_plan.launches,
+                  P.scatter_matmul.launches, P.hw_uniform.launches)
+        model.train_one_iteration(state, 7)
+        steps = len(state.aux["device_batches"])
+        now = (P.adagrad_update.launches, P.scatter_plan.launches,
+               P.scatter_matmul.launches, P.hw_uniform.launches)
+        if use_pallas:
+            assert now[0] == counts[0] + steps
+            assert now[1] > counts[1] + steps and now[2] > counts[2] + steps
+            assert now[3] >= counts[3] + steps
+        else:
+            assert now == counts
+        params[use_pallas] = state.params
+    for k, want in params[False].items():
+        got = params[True][k]
+        rel = ((got.double() - want.double()).norm()
+               / want.double().norm().clamp_min(1e-30)).item()
+        assert rel <= 1e-4, (k, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["exact", "pool", "row_update",
+                                  "row_update_pool"])
+def test_cdae_sparse_runs_are_bit_equal(cuda, case):
+    """Two 2-epoch sparse runs from one reset give the same bits: every
+    row aggregation, row_update's delta-adds included, sums in B8's fixed
+    order."""
+    runs = []
+    for _ in range(2):
+        model, state = _sparse_cdae("cuda", **_SPARSE_CASES[case])
+        model.train_epochs(state, 2, 11)
+        runs.append(state.params)
+    for k in runs[0]:
+        assert torch.equal(runs[0][k], runs[1][k]), k
+
+
+@pytest.mark.cuda
+def test_cdae_sparse_step_equals_dense_step_without_draws(cuda):
+    """With corruption 0 and no negatives the sparse and dense steps are
+    the same math (tests/test_dense_mode.py's identity): one step of each
+    from one reset on the same users agrees to rtol 2e-5 / atol 1e-6."""
+    from cdae_tpu_torch.models.base import iter_user_batches
+    from cdae_tpu_torch.models.cdae import _dense_train_step, _train_step
+
+    kw = dict(corruption_ratio=0.0, num_neg=0, bucket_by_length=False)
+    model, state = _sparse_cdae("cuda", **kw)
+    dense, dstate = _sparse_cdae("cuda", dense_mode=True, **kw)
+    assert "dense_R" in dstate.aux and "dense_R" not in state.aux
+    b = next(iter_user_batches(state.padded, model.cfg.batch_size))
+    uids, items, mask, lengths, weight = (
+        torch.as_tensor(x, device="cuda")
+        for x in (b.uids, b.items, b.mask, b.lengths, b.weight))
+    _train_step(state.params, uids.long(), items.long(), mask,
+                lengths.long(), weight, 3, cfg=model.cfg, loss=model.loss)
+    _dense_train_step(dstate.params, dstate.aux["dense_R"], uids.long(),
+                      weight, 3, cfg=dense.cfg, loss=dense.loss)
+    for k in state.params:
+        torch.testing.assert_close(state.params[k], dstate.params[k],
+                                   rtol=2e-5, atol=1e-6)

@@ -48,14 +48,26 @@ def test_cuda_request_raises_without_gpu(monkeypatch, tmp_path):
                  "--train_cache_file", str(tmp_path / "missing.bin")])
 
 
-def test_later_tasks_and_methods_exit_with_message():
+def test_later_tasks_and_methods_exit_with_message(movielens_path,
+                                                   tmp_path):
+    """The sweep task and the unported methods exit naming a later slice;
+    --task train trains Popularity first (it once refused to run without
+    --skip_popularity): with --method NONE it trains Popularity alone and
+    returns its TOPN row, as cdae_tpu's CLI does."""
     from cdae_tpu_torch import cli
 
     with pytest.raises(SystemExit, match="later slice"):
         cli.run(["--task", "sweep", "--method", "CDAE"])
-    # train runs Popularity first unless told not to; Popularity is later
-    with pytest.raises(SystemExit, match="Popularity.*later slice"):
-        cli.run(["--task", "train", "--method", "CDAE", "--device", "cpu"])
+    cache = str(tmp_path / "ml.bin")
+    cli.run(["--task", "prepare", "--parser", "movielens",
+             "--input_file", movielens_path, "--cache_file", cache])
+    args = cli.build_arg_parser().parse_args(
+        ["--task", "train", "--method", "NONE", "--cache_file", cache,
+         "--device", "cpu"])
+    solver = cli.train(args)
+    assert type(solver.model).__name__ == "Popularity"
+    assert [r["iter"] for r in solver.history] == [0.0, 1.0]
+    assert 0.0 < solver.history[-1]["R@10"] <= 1.0
     with pytest.raises(SystemExit, match="later slice"):
         cli.run(["--task", "test", "--method", "BPR", "--device", "cpu"])
 

@@ -246,11 +246,16 @@ def test_port_loads_a_cdae_tpu_training_checkpoint(movielens_path, tsplit,
 
 
 def test_sparse_training_raises_naming_a7(tsplit):
+    """The sparse step (ROADMAP A7, once refused here) now trains: without
+    dense_R, train_one_iteration, train_epochs and data_loss run, advance
+    the step and move the tables, and the loss stays finite."""
     m = _model(dense_mode=False)
     st = m.reset(tsplit[0], seed=0)
     assert "dense_R" not in st.aux
-    for call in (lambda: m.train_one_iteration(st),
-                 lambda: m.train_epochs(st, 2), lambda: m.data_loss(st)):
-        with pytest.raises(NotImplementedError, match="A7"):
-            call()
+    W0 = st.params["W"].clone()
+    m.train_one_iteration(st)
+    m.train_epochs(st, 2)
+    assert st.step == 3
+    assert not torch.equal(st.params["W"], W0)
+    assert np.isfinite(m.data_loss(st))
     assert dataclasses.replace(m.cfg).dense_mode is False
