@@ -1,4 +1,4 @@
-"""CLI of the port (port of cdae_tpu/cli.py, the CDAE, WARP, FISM and
+"""CLI of the port (port of cdae_tpu/cli.py, the CDAE, MF-family, FISM and
 Popularity tasks).
 
 The flag surface is cdae_tpu's, so command lines carry over, plus
@@ -10,17 +10,18 @@ CPU -- a CUDA request without a GPU raises). Tasks:
   train    -- load --cache_file, split it (--test_ratio, --seed), train and
               evaluate the Popularity baseline (one TOPN row; skipped with
               --skip_popularity), as cdae_tpu does; then, unless --method
-              is NONE, train --method CDAE, WARP, FISM, FISMPAIR or POP
-              with Solver.train (SGDSolver with --learn_rate for FISM),
-              evaluating every --eval_iters; --init_checkpoint resumes,
+              is NONE, train --method CDAE, MF (IMF), IMF, PMF, BPR, WARP,
+              FISM, FISMPAIR or POP with Solver.train (SGDSolver with
+              --learn_rate for FISM), evaluating every --eval_iters with
+              --eval (TOPN, RANKING, RMSE, MAE); --init_checkpoint resumes,
               --checkpoint / --checkpoint_every write checkpoints. CDAE
               trains in dense mode while the int8 (U, I) matrix fits
               (--dense_mode auto), else with the sparse step.
   test     -- load split caches, restore --init_checkpoint (a cdae_tpu or
               cdae_tpu_torch checkpoint), evaluate any of those methods
 
-``sweep``, and every other method (the other MF models, ALS, the linear
-and neighbour models), come with later slices of the port and exit with a
+``sweep``, ``--sharded`` and every other method (ALS, WRMF, the linear
+and neighbour models) come with later slices of the port and exit with a
 message saying so.
 
 Run: ``python -m cdae_tpu_torch.cli --task train --method CDAE ...``
@@ -60,8 +61,8 @@ def _booly(v: str) -> bool:
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cdae_tpu_torch",
-        description="CDAE, WARP and FISM training and top-N serving on "
-                    "PyTorch/CUDA (cdae_tpu port)",
+        description="CDAE, MF-family and FISM training and top-N serving "
+                    "on PyTorch/CUDA (cdae_tpu port)",
     )
     # -- cdae_tpu's flag surface --
     p.add_argument("--input_file", default="./yelp_10core.txt")
@@ -99,7 +100,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=1024)
     p.add_argument("--test_ratio", type=float, default=0.2)
     p.add_argument("--eval", default="TOPN",
-                   help="comma-separated eval types (TOPN,RANKING)")
+                   help="comma-separated eval types (TOPN,RANKING,RMSE,MAE)")
     p.add_argument("--rel_threshold", type=float, default=4.0,
                    help="RANKING relevance cut for a hit")
     p.add_argument("--checkpoint", default="")
@@ -143,6 +144,7 @@ def build_model(args):
                                        CDAEConfig, FISMConfig, MFConfig)
 
     method = args.method.upper()
+    method = "IMF" if method == "MF" else method  # the reference's MF
     if method not in MODEL_REGISTRY:
         entry = LATER_MODELS.get(method)
         raise SystemExit(
@@ -156,6 +158,7 @@ def build_model(args):
     if cfg_cls is None:
         return cls(device=args.device)
     if cfg_cls is MFConfig:
+        # --dense_mode true opts BPR and WARP into their slab steps
         return cls(MFConfig(
             learn_rate=args.learn_rate, beta=args.beta, lambda_=args.lambda_,
             loss=args.loss_type, num_dim=args.num_dim, num_neg=args.num_neg,

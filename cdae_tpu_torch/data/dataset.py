@@ -1,9 +1,10 @@
 """Sparse user-item interaction datasets (numpy, host side).
 
-The port's copy of cdae_tpu/data/dataset.py, restricted to what serving
-needs: the COO ``Interactions`` container, its CSR and padded views, the
-per-user split and the two built-in text parsers. Loading and CSR building
-are pure Python/numpy (no native helper library), and ``split_by_user``
+The port's copy of cdae_tpu/data/dataset.py, restricted to what the
+ported models need: the COO ``Interactions`` container, its CSR, padded
+and dense views, the per-user split and the two built-in text parsers.
+Loading and CSR building are pure Python/numpy (no native helper library),
+and ``split_by_user``
 draws from the same seeded numpy stream as cdae_tpu, so both packages
 produce the same split from the same data and seed.
 """
@@ -177,6 +178,20 @@ class Interactions:
             lengths=lengths,
             num_items=self.num_items,
         )
+
+    def dense_matrix(self, binary: bool = False) -> np.ndarray:
+        """(num_users, num_items) float32 rating matrix, built on the host
+        (small catalogs only). ``binary``: 1 at every rated pair; else the
+        rating, and where a pair is rated several times the first
+        occurrence wins (the reference's user_item_dict semantics)."""
+        m = np.zeros((self.num_users, self.num_items), dtype=np.float32)
+        if binary:
+            m[self.users, self.items] = 1.0
+            return m
+        keys = self.users.astype(np.int64) * self.num_items + self.items
+        _, first = np.unique(keys, return_index=True)
+        m[self.users[first], self.items[first]] = self.ratings[first]
+        return m
 
     def split_by_user(
         self, test_ratio: float, seed: int = 0

@@ -1,13 +1,19 @@
-"""Batched top-N evaluation (port of cdae_tpu/evaluation.py, TOPN and
-RANKING).
+"""Batched evaluation (port of cdae_tpu/evaluation.py): RMSE/MAE over
+validation (user, item, rating) triples, and top-N (TOPN, RANKING).
 
-Validation users are processed in fixed-size batches, ordered by their
-train row length so each batch's padded rated rows stay short. A batch is
-ranked by the model's own ``batch_topk`` when it has one for the catalog
-size, else by full-catalog ``batch_scores`` -> mask rated -> top-10; then
-per-user metric rows. Column sums accumulate in float64 on the device,
-with one readback per ``evaluate`` call, and are divided by the number of
-validation users. ``TestTime`` is reported as a column.
+RMSE / MAE: the triples in fixed-size batches (the last padded with
+weight-0 rows) through the model's ``predict``; each batch's error sum
+(squared or absolute) stays on the device, with one readback per
+``evaluate`` call.
+
+TOPN / RANKING: validation users are processed in fixed-size batches,
+ordered by their train row length so each batch's padded rated rows stay
+short. A batch is ranked by the model's own ``batch_topk`` when it has
+one for the catalog size, else by full-catalog ``batch_scores`` -> mask
+rated -> top-10; then per-user metric rows. Column sums accumulate in
+float64 on the device, with one readback per ``evaluate`` call, and are
+divided by the number of validation users. ``TestTime`` is reported as a
+column.
 """
 
 from __future__ import annotations
@@ -57,16 +63,60 @@ class Evaluation:
         if isinstance(kind, Evaluation):  # pre-built (e.g. custom threshold)
             return kind
         kind = EvalType.parse(kind)
-        if kind in (EvalType.TOPN, EvalType.RANKING):
-            return RecListEvaluation(kind, batch_size, rel_threshold)
-        raise NotImplementedError(
-            f"{kind.value} evaluation is not ported to cdae_tpu_torch yet "
-            "(pointwise RMSE/MAE come with a later slice; see ROADMAP.md)"
-        )
+        if kind in (EvalType.RMSE, EvalType.MAE):
+            return PointwiseEvaluation(kind, batch_size)
+        return RecListEvaluation(kind, batch_size, rel_threshold)
 
     def evaluate(self, model, state, validation: Interactions,
                  train: Optional[Interactions] = None) -> Dict[str, float]:
         raise NotImplementedError
+
+
+def _pointwise_partial(preds, labels, weight, kind: "EvalType"
+                       ) -> torch.Tensor:
+    """A batch's weighted error sum as a device scalar: squared for RMSE,
+    absolute for MAE."""
+    err = (preds.to(torch.float32) - labels.to(torch.float32)) * weight
+    if kind == EvalType.RMSE:
+        return torch.sum(err * err)
+    return torch.sum(torch.abs(err))
+
+
+class PointwiseEvaluation(Evaluation):
+    """RMSE / MAE over the validation triples (ref evaluation.hpp:37-91)."""
+
+    def __init__(self, kind, batch_size: int = 4096):
+        self.kind = EvalType.parse(kind)
+        self.columns = (self.kind.value,)
+        self.batch_size = max(int(batch_size), 1)
+
+    def evaluate(self, model, state, validation: Interactions,
+                 train: Optional[Interactions] = None) -> Dict[str, float]:
+        t = Timer()
+        n = len(validation)
+        if n == 0:
+            return {self.kind.value: 0.0, "TestTime": t.elapsed()}
+        total = torch.zeros((), dtype=torch.float64, device=model.device)
+        bs = self.batch_size
+        for start in range(0, n, bs):
+            sel = slice(start, min(start + bs, n))
+            users = validation.users[sel]
+            items = validation.items[sel]
+            labels = validation.ratings[sel]
+            pad = bs - len(users)
+            weight = np.ones(bs, dtype=np.float32)
+            if pad > 0:  # every batch has one shape
+                users = np.pad(users, (0, pad))
+                items = np.pad(items, (0, pad))
+                labels = np.pad(labels, (0, pad))
+                weight[bs - pad:] = 0.0
+            preds = model.predict(state, users, items)
+            total += _pointwise_partial(
+                preds, torch.as_tensor(labels, device=model.device),
+                torch.as_tensor(weight, device=model.device), self.kind)
+        total = float(total)  # the one device sync
+        val = np.sqrt(total / n) if self.kind == EvalType.RMSE else total / n
+        return {self.kind.value: float(val), "TestTime": t.elapsed()}
 
 
 class RecListEvaluation(Evaluation):

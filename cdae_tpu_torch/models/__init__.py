@@ -1,6 +1,7 @@
-"""Models of the port: CDAE (dense and sparse training, serving), WARP
-(dense path training and serving), FISM / FISMPair (training and serving)
-and the Popularity baseline, with cdae_tpu's registry.
+"""Models of the port: CDAE (dense and sparse training, serving), the
+matrix-factorization family (PMF, IMF, BPR, WARP: every route), FISM /
+FISMPair (training and serving) and the Popularity baseline, with
+cdae_tpu's registry.
 
 ``create_model(name, **cfg)`` mirrors cdae_tpu's (the reference app's
 ``--method`` dispatch). Every other model of cdae_tpu's zoo raises
@@ -10,11 +11,14 @@ NotImplementedError naming the ROADMAP entry of the slice it comes with.
 from cdae_tpu_torch.models.base import ModelState, RecsysModel
 from cdae_tpu_torch.models.cdae import CDAE, CDAEConfig
 from cdae_tpu_torch.models.fism import FISM, FISMConfig, FISMPair
-from cdae_tpu_torch.models.mf import WARP, MFConfig
+from cdae_tpu_torch.models.mf import BPR, IMF, PMF, WARP, MFConfig
 from cdae_tpu_torch.models.popularity import Popularity
 
 MODEL_REGISTRY = {
     "CDAE": (CDAE, CDAEConfig),
+    "PMF": (PMF, MFConfig),
+    "IMF": (IMF, MFConfig),
+    "BPR": (BPR, MFConfig),
     "WARP": (WARP, MFConfig),
     "FISM": (FISM, FISMConfig),
     "FISMPAIR": (FISMPair, FISMConfig),
@@ -23,7 +27,6 @@ MODEL_REGISTRY = {
 
 # cdae_tpu's other registry names -> the ROADMAP entry that ports them
 LATER_MODELS = {
-    "PMF": "A8", "IMF": "A8", "BPR": "A8",
     "ALS": "A9", "WRMF": "A9", "NEGMF": "A9", "LINEAR": "A9", "FM": "A9",
     "ITEMCF": "A9", "USERCF": "A9",
 }
@@ -47,5 +50,6 @@ def create_model(name: str, device="cuda", **cfg):
 
 
 __all__ = ["RecsysModel", "ModelState", "MODEL_REGISTRY", "LATER_MODELS",
-           "create_model", "CDAE", "CDAEConfig", "WARP", "MFConfig", "FISM",
+           "create_model", "CDAE", "CDAEConfig", "PMF", "IMF", "BPR", "WARP",
+           "MFConfig", "FISM",
            "FISMPair", "FISMConfig", "Popularity"]

@@ -1,6 +1,5 @@
 """On-device integer draws and the CSR membership test (port of
-cdae_tpu/ops/sampling.py, the parts WARP's dense path, FISM, CDAE's sparse
-step and Popularity use).
+cdae_tpu/ops/sampling.py: every part the ported models use).
 
 ``hw_randint`` is cdae_tpu's uniform int in [0, maxval) built on the
 uniform stream of ``hw_uniform`` (kernel B1) with a salt XORed into the
@@ -15,10 +14,11 @@ scan, a sort-based searchsorted), which all give the same integer; here it
 is one ``torch.searchsorted``.
 
 ``is_rated`` is the CSR membership test of the sparse CDAE step's pooled
-negatives and of Popularity's candidate walk. cdae_tpu compares every
-query with every rated slot (a fused compare on the TPU); here each query
-is one binary search of its row, ``torch.searchsorted``, which gives the
-same booleans for rows sorted ascending.
+negatives, of Popularity's candidate walk and of WARP's pool path without
+the (U, I) rated mask. cdae_tpu compares every query with every rated slot
+(a fused compare on the TPU); here each query is one binary search of its
+row, ``torch.searchsorted``, which gives the same booleans for rows sorted
+ascending.
 """
 
 from __future__ import annotations
@@ -57,41 +57,47 @@ def sample_unrated(
     *,
     hw: bool = False,
     u: Optional[torch.Tensor] = None,
+    use_kernel: bool = True,
 ) -> torch.Tensor:
     """Uniform samples from each row's UNRATED items; (B, num_samples)
     int64.
 
     The draws ``u`` (uniform in [0, free) per row, free = max(num_items -
     length, 1)) are injected, or come from ``hw_randint(seed, ...)`` with
-    ``hw`` (B1's hash stream; the float scaling biases a draw by less than
-    free * 2**-24), or else from a ``torch.Generator`` seeded with ``seed``
+    ``hw`` (B1's hash stream -- its kernel for a CUDA device when
+    ``use_kernel``; the float scaling biases a draw by less than free *
+    2**-24), or else from a ``torch.Generator`` seeded with ``seed``
     (float64 uniforms scaled and floored, a bias below free * 2**-53).
+    int32 rows (the MF family's) are searched as int32.
 
     Rows whose complement is empty (length == num_items) come back as the
     sentinel id ``num_items``: callers must zero-weight slots with id >=
     num_items, since clipping it would turn a rated item into a negative."""
     B, L = sorted_items.shape
     dev = sorted_items.device
-    lengths = lengths.to(torch.int64)
+    dt = torch.int32 if sorted_items.dtype == torch.int32 else torch.int64
+    lengths = lengths.to(dt)
     free = torch.clamp(num_items - lengths, min=1)[:, None]
     if u is None:
         shape = (B, num_samples)
         if hw:
-            u = hw_randint(seed, shape, free, device=dev)
+            u = hw_randint(seed, shape, free, device=dev,
+                           use_kernel=use_kernel)
         else:
             gen = torch.Generator(device=dev).manual_seed(int(seed) & _MASK32)
             r = torch.rand(shape, generator=gen, dtype=torch.float64,
                            device=dev)
-            u = torch.minimum((r * free).to(torch.int64), free - 1)
-    u = torch.as_tensor(u, device=dev).to(torch.int64)
+            u = torch.minimum((r * free).to(dt), free - 1)
+    u = torch.as_tensor(u, device=dev).to(dt)
     # rank transform: R[j] - j counts the unrated ids below R[j]; padded
     # slots become num_items, above every valid draw, so the row stays
     # sorted
-    pos = torch.arange(L, device=dev)[None, :]
-    ranks = torch.where(pos < lengths[:, None],
-                        sorted_items.to(torch.int64) - pos, num_items)
-    k = torch.searchsorted(ranks.contiguous(), u.contiguous(), right=True)
-    return u + k
+    pos = torch.arange(L, device=dev, dtype=dt)[None, :]
+    ranks = torch.where(pos < lengths[:, None], sorted_items.to(dt) - pos,
+                        num_items)
+    k = torch.searchsorted(ranks.contiguous(), u.contiguous(), right=True,
+                           out_int32=dt == torch.int32)
+    return (u + k).to(torch.int64)
 
 
 def is_rated(
@@ -100,17 +106,18 @@ def is_rated(
     queries: torch.Tensor,  # (Q,) shared or (B, Q) per-row ids
 ) -> torch.Tensor:
     """Membership of ``queries`` in each row's first ``lengths`` entries;
-    (B, Q) bool."""
+    (B, Q) bool. int32 rows are searched as int32."""
     B, L = sorted_items.shape
     dev = sorted_items.device
-    q = torch.as_tensor(queries, device=dev).to(torch.int64)
+    dt = torch.int32 if sorted_items.dtype == torch.int32 else torch.int64
+    q = torch.as_tensor(queries, device=dev).to(dt)
     q = q.expand(B, -1) if q.dim() == 1 else q
     if L == 0 or q.shape[1] == 0:
         return torch.zeros(q.shape, dtype=torch.bool, device=dev)
-    pos = torch.arange(L, device=dev)[None, :]
+    pos = torch.arange(L, device=dev, dtype=dt)[None, :]
     # padding slots above every id, so the row stays sorted and never hits
-    top = torch.iinfo(torch.int64).max
-    rows = torch.where(pos < lengths.to(torch.int64)[:, None],
-                       sorted_items.to(torch.int64), top).contiguous()
+    top = torch.iinfo(dt).max
+    rows = torch.where(pos < lengths.to(dt)[:, None], sorted_items.to(dt),
+                       top).contiguous()
     at = torch.searchsorted(rows, q.contiguous()).clamp_(max=L - 1)
     return torch.gather(rows, 1, at) == q

@@ -95,8 +95,35 @@ Phases, each printed as one JSON line:
   sparse_ml1m_checks -- two 2-epoch sparse runs bit for bit; one epoch
              with the kernels against their plain versions; the corruption-0
              dense/sparse identity (16 users elementwise, 1024 per table)
+  the rest of the MF family (counts from 0 before train_imf, read after
+  train_imf_mxu; B1, B2, B8's plan and reduce, B9), D=10, batch 8192, on the
+  same ML-1M-scale data:
+    train_imf -- CLI --method MF (IMF) --fast_rng, 10 epochs: the user slab
+             by the auto rule (B1's uniforms, B2, B8 in the user rows'
+             delta AdaGrad); R@10 rises
+    train_imf_sparse -- the same with --dense_mode false: sample_unrated,
+             B8, B2; R@10 rises (its distance to train_imf printed)
+    train_pmf -- lowrank_rated data of the same dimensions, --method PMF
+             --eval RMSE,MAE, the slab and --dense_mode false: RMSE falls
+             from epoch 0 to 10 on both
+    train_bpr -- --method BPR (LOG; the sparse step), then --dense_mode true
+             at 2x lr: R@10 rises on both
+    train_warp_routes -- 2 epochs of train_warp's configuration on the slab
+             (pool 1024, 3x lr, 64 users a slab), the pool path with the
+             rated mask and with the CSR rows (the same bits) and the scan
+             path: R@10 rises on each
+    train_imf_mxu -- one epoch of train_imf_sparse with gather_mode="mxu"
+             (B9): the native gather's bits
+  mf_checks -- IMF sparse, BPR sparse, PMF slab and the WARP slab: one epoch
+             with the kernels against one with their plain versions, 1e-4
+             relative per table; two 2-epoch runs of each default route bit
+             for bit
+  train_speed_mf -- warm users/s, ms and launches a step, B1/B2/B8 launches
+             a step, device ms (B8's apart), idle share and peak memory for
+             IMF (slab, sparse), PMF sparse, BPR (sparse, slab), WARP slab
 Then the whole run's wall time, the kernel table (each kernel's launches
-from the path that owns it; B8's plan has a row of its own; a kernel timed
+summed over the main paths that run it, beside them by path; B8's plan has
+a row of its own; a kernel timed
 at several shapes lists them all under ``shapes``; bound_ms is the least
 time for the kernel's work at the card's published peaks: HBM bytes at
 3.35 TB/s against 32-bit operations at 67 T/s, or, for B3, B4, B5 and B6,
@@ -146,8 +173,8 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12  # dense TF32 on the tensor cores
 
-# name -> (module of the wrapper, source, TPU kernel it replaces, paths
-# that must launch it; the first owns the table's launch count)
+# name -> (module of the wrapper, source, TPU kernel it replaces, the main
+# paths that must launch it; the table's launch count sums them)
 KERNELS = {
     "decode_scores": ("pallas_kernels", "cdae_tpu_torch/csrc/decode_scores.cu",
                       "cdae_tpu/ops/pallas_kernels.py:53", ("serving",)),
@@ -161,12 +188,13 @@ KERNELS = {
                               ("serving",)),
     "hw_uniform": ("pallas_kernels", "cdae_tpu_torch/csrc/hw_uniform.cu",
                    "cdae_tpu/ops/pallas_kernels.py:178",
-                   ("training", "sparse_training")),
+                   ("training", "sparse_training", "mf_training")),
     "adagrad_update": ("pallas_kernels",
                        "cdae_tpu_torch/csrc/adagrad_update.cu",
                        "cdae_tpu/ops/pallas_kernels.py:108",
                        ("training", "fused_training", "warp_training",
-                        "fism_training", "warp_mxu", "sparse_training")),
+                        "fism_training", "warp_mxu", "sparse_training",
+                        "mf_training")),
     "cdae_dense_step_fused": ("cdae_fused", "cdae_tpu_torch/csrc/cdae_fused.cu",
                               "cdae_tpu/ops/cdae_fused.py:249",
                               ("fused_training",)),
@@ -178,15 +206,16 @@ KERNELS = {
     "scatter_matmul": ("pallas_kernels", "cdae_tpu_torch/csrc/scatter_rows.cu",
                        "cdae_tpu/ops/pallas_kernels.py:1147",
                        ("fism_training", "warp_training", "warp_mxu",
-                        "sparse_training")),
+                        "sparse_training", "mf_training")),
     # B8's id sort (the TPU kernel contracts one-hot tiles and sorts
     # nothing): a wrapper and a count of its own
     "scatter_plan": ("pallas_kernels", "cdae_tpu_torch/csrc/scatter_rows.cu",
                      "cdae_tpu/ops/pallas_kernels.py:1147",
                      ("fism_training", "warp_training", "warp_mxu",
-                      "sparse_training")),
+                      "sparse_training", "mf_training")),
     "gather_rows_mxu": ("pallas_kernels", "cdae_tpu_torch/csrc/gather_rows.cu",
-                        "cdae_tpu/ops/pallas_kernels.py:856", ("warp_mxu",)),
+                        "cdae_tpu/ops/pallas_kernels.py:856",
+                        ("warp_mxu", "mf_training")),
 }
 
 
@@ -415,6 +444,8 @@ ADAGRAD_SETS = (
     ("cdae_config4", ((20000, 200), (20000,), (200,)), 1.0),
     ("warp_ml1m", ((6040, 10), (3706, 10)), 0.0),
     ("fism_ml1m", ((6040,), (3706, 10), (3706,), (3706, 10)), 0.0),
+    # PMF's and IMF's sparse steps: uv, ub, iv, ib
+    ("mf_ml1m", ((6040, 10), (6040,), (3706, 10), (3706,)), 1.0),
 )
 
 
@@ -514,7 +545,8 @@ def phase_adagrad_tables(torch, P, g, results) -> bool:
 
 def phase_train_kernels(torch, results):
     """B1, B2 and B4 against their plain versions at the training path's
-    shapes: ML-1M (I=3706, D=50) and config-4 (I=20000, D=200), B=1024."""
+    shapes: ML-1M (I=3706, D=50) and config-4 (I=20000, D=200), B=1024;
+    B1 also at the IMF slab's (6040, 3706)."""
     import cdae_tpu_torch.ops.pallas_kernels as P
     from cdae_tpu_torch.ops import cdae_fused as F
 
@@ -523,7 +555,7 @@ def phase_train_kernels(torch, results):
     bad = []
 
     # B1 hw_uniform: bit-equal to the plain int64 version
-    for shape in ((1024, 3706), (1024, 20000)):
+    for shape in ((1024, 3706), (1024, 20000), (6040, 3706)):
         out = P.hw_uniform(SEED, shape, 1, device=dev)
         ref = P.hw_uniform_plain(SEED, shape, 1, device=dev)
         torch.cuda.synchronize()
@@ -1107,11 +1139,12 @@ def phase_train_warp_xla(torch, held):
                 and r_x > xla.history[0]["R@10"])
 
 
-def _profile(torch, fn) -> dict:
+def _profile(torch, fn, groups=None) -> dict:
     """One call of ``fn`` under torch.profiler: host wall, device busy time
     (the sum of the CUDA kernels' spans on the one stream), idle share and
-    the largest kernels. Without device events the device numbers are
-    None (not measured)."""
+    the largest kernels; with ``groups`` (label -> kernel-name parts) also
+    the device ms of each group's kernels. Without device events the
+    device numbers are None (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1130,10 +1163,17 @@ def _profile(torch, fn) -> dict:
                                  + evt.time_range.elapsed_us() / 1e3)
     busy = sum(by_name.values()) if by_name else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return dict(wall_ms=wall_ms, device_busy_ms=busy,
-                idle_share=None if busy is None else 1.0 - busy / wall_ms,
-                device_kernels=kernels,
-                top_kernels_ms=[[n[:80], ms] for n, ms in top])
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy,
+               idle_share=None if busy is None else 1.0 - busy / wall_ms,
+               device_kernels=kernels,
+               top_kernels_ms=[[n[:80], ms] for n, ms in top])
+    if groups:
+        out["group_device_ms"] = {
+            label: (sum(ms for n, ms in by_name.items()
+                        if any(part in n for part in parts))
+                    if by_name else None)
+            for label, parts in groups.items()}
+    return out
 
 
 def phase_train_speed_warp(torch, held):
@@ -1242,7 +1282,10 @@ def phase_kernel_scatter(torch, held, results):
     aggregation, (P, 10), of the largest batch of the run's data), at
     WARP's (49,152 item rows x 11, 8,192 user rows x 10) and at CDAE's
     sparse step's (an ML-20M batch's 262,144 ids x 201 columns, a
-    1M-item pool's 8,192 x 51), with f32 and bf16 contributions. The plan must equal its plain version (the library's
+    1M-item pool's 8,192 x 51) and the MF family's (IMF's 49,152 user rows
+    x 11, the BPR slab's 193,280 negative rows x 11, the WARP slab's 1,024
+    pool rows x 10), with f32 and bf16 contributions. The plan must equal
+    its plain version (the library's
     stable sort), two launches on one input must give the same bits, and
     FISM's P sums over the Q + bi plan (limit = the P ids' count) the same
     bits as over their own plan. Times: the wrapper's whole span (plan +
@@ -1272,7 +1315,16 @@ def phase_kernel_scatter(torch, held, results):
               26_744, 201),
              ("cdae_1m_pool", torch.randint(0, 1_000_000, (8192,),
                                             generator=g, device=dev),
-              1_000_000, 51))
+              1_000_000, 51),
+             # the MF family at batch 8192: IMF's and PMF's user sums
+             # ([uv | ub] of 8,192 x 6 instances), the BPR slab's 6,040 x 32
+             # negative rows, the WARP slab's 1,024 pool rows
+             ("imf_user", torch.randint(0, U, (49152,), generator=g,
+                                        device=dev), U, 11),
+             ("bpr_slab_neg", torch.randint(0, I, (6040 * 32,), generator=g,
+                                            device=dev), I, 11),
+             ("warp_slab_pool", torch.randint(0, I, (1024,), generator=g,
+                                              device=dev), I, 10))
     bad = []
     for name, idx, N, C in cases:
         Pn = idx.shape[0]
@@ -1355,7 +1407,8 @@ def phase_kernel_scatter(torch, held, results):
 def phase_kernel_gather(torch, results):
     """B9 exactly equal to its plain version at WARP's shapes (the (3706,
     11) item table with its bias column, 49,152 rows; the (6040, 10) user
-    table, 8,192 rows), then with ids out of range, whose rows must be
+    table, 8,192 rows) and IMF's (the (6040, 11) user table with its bias
+    column, 49,152 rows), then with ids out of range, whose rows must be
     zero. library_ms: torch.index_select on the same (in-range) ids."""
     import cdae_tpu_torch.ops.pallas_kernels as P
 
@@ -1363,7 +1416,8 @@ def phase_kernel_gather(torch, results):
     g = torch.Generator(device=dev).manual_seed(SEED)
     bad = []
     for name, N, C, Pn in (("warp_item", 3706, 11, 49152),
-                           ("warp_user", 6040, 10, 8192)):
+                           ("warp_user", 6040, 10, 8192),
+                           ("imf_user", 6040, 11, 49152)):
         table = torch.randn((N, C), generator=g, device=dev)
         idx = torch.randint(0, N, (Pn,), generator=g, device=dev)
         out = P.gather_rows_mxu(table, idx)
@@ -1661,6 +1715,341 @@ def phase_warp_mxu_vs_native(torch, held):
                 index_add_run_to_run=spread, tol=ROUTE_REL_TOL,
                 ok=bit_equal and default_repeats and default_is_mxu
                 and rel1 <= ROUTE_REL_TOL)
+
+
+# ---------------------------------------------- the rest of the MF family ----
+
+MF_TRAIN = ["--task", "train", "--num_dim", "10", "--num_neg", "5",
+            "--learn_rate", "0.1", "--batch_size", "8192", "--max_iters",
+            "10", "--eval_iters", "5", "--skip_popularity", "--seed",
+            str(SEED), "--test_ratio", "0.2"]
+# the kernels of the new MF paths, as torch.profiler names them
+B8_KERNELS = ("radix_hist_kernel", "radix_pass_kernel",
+              "segment_offsets_kernel", "scatter_reduce_kernel")
+MF_GROUPS = {"b8": B8_KERNELS, "b1": ("hw_uniform_kernel",),
+             "b2": ("adagrad_tables_kernel",)}
+
+
+def _mf_cli(torch, tmp, data, name, argv):
+    """cli.train of MF_TRAIN + ``argv`` on ``data`` (cached once as
+    ``name``); returns the Solver and the task's seconds."""
+    from cdae_tpu_torch import cli
+    from cdae_tpu_torch.data import io as data_io
+
+    cache = os.path.join(tmp, name + ".bin")
+    if not os.path.exists(cache):
+        data_io.save_interactions(data, cache)
+    t0 = time.perf_counter()
+    solver = cli.train(cli.build_arg_parser().parse_args(
+        MF_TRAIN + ["--cache_file", cache] + argv))
+    torch.cuda.synchronize()
+    return solver, time.perf_counter() - t0
+
+
+def _mf_row(torch, phase, solver, seconds, col="R@10"):
+    """A training phase's row: the route, the metric at each eval, and
+    whether it rose (fell, for RMSE) and the params stayed finite."""
+    from cdae_tpu_torch.solver.solver import _params_finite
+
+    hist = solver.history
+    finite = _params_finite(solver.state.params)
+    first, last = hist[0][col], hist[-1][col]
+    moved = last < first if col == "RMSE" else last > first
+    cfg = solver.model.cfg
+    return dict(phase=phase, method=solver.model.name,
+                route="slab" if "dense_R" in solver.state.aux else "sparse",
+                batch=cfg.batch_size, fast_rng=cfg.fast_rng,
+                learn_rate=cfg.learn_rate, loss=cfg.loss, cli_seconds=seconds,
+                metric=col,
+                by_epoch={int(r["iter"]): r[col] for r in hist},
+                params_finite=finite, ok=finite and moved)
+
+
+def phase_train_imf(torch, tmp, held):
+    """CLI --method MF (IMF) --fast_rng on the ML-1M-scale low-rank data,
+    D=10, batch 8192, 10 epochs: the user slab by the auto rule (B1's
+    uniforms for the Bernoulli negatives, one B2 launch for iv and ib, B8
+    in the user rows' delta AdaGrad). R@10 rises."""
+    solver, s = _mf_cli(torch, tmp, held["ml1m_data"], "ml1m_lowrank",
+                        ["--method", "MF", "--fast_rng", "true"])
+    held["imf"] = solver
+    row = _mf_row(torch, "train_imf", solver, s)
+    row["ok"] = row["ok"] and row["route"] == "slab"
+    return row
+
+
+def phase_train_imf_sparse(torch, tmp, held):
+    """The same with --dense_mode false: the sparse step (sample_unrated
+    over B1's draws, the [uv | ub] and [iv | ib] sums in B8, one B2 launch
+    a step). R@10 rises; its distance to train_imf's is printed."""
+    solver, s = _mf_cli(torch, tmp, held["ml1m_data"], "ml1m_lowrank",
+                        ["--method", "MF", "--fast_rng", "true",
+                         "--dense_mode", "false"])
+    held["imf_sparse"] = solver
+    row = _mf_row(torch, "train_imf_sparse", solver, s)
+    if "imf" in held:
+        row["distance_to_slab"] = (solver.history[-1]["R@10"]
+                                   - held["imf"].history[-1]["R@10"])
+    row["ok"] = row["ok"] and row["route"] == "sparse"
+    return row
+
+
+def phase_train_pmf(torch, tmp, held):
+    """--method PMF --eval RMSE,MAE on lowrank_rated data of the same
+    dimensions (1-5 ratings), the slab (auto) and --dense_mode false, 10
+    epochs each: RMSE falls from epoch 0 to epoch 10 on both."""
+    from cdae_tpu_torch.data.synthetic import lowrank_rated
+
+    t0 = time.perf_counter()
+    data = lowrank_rated(6040, 3706, 160, seed=SEED)
+    data_s = time.perf_counter() - t0
+    held["pmf_data"] = data.split_by_user(0.2, seed=SEED)
+    out = dict(phase="train_pmf", users=6040, items=3706, D=10,
+               ratings=len(data), data_s=data_s)
+    ok = True
+    for route, extra in (("slab", []), ("sparse", ["--dense_mode", "false"])):
+        solver, s = _mf_cli(torch, tmp, data, "ml1m_rated",
+                            ["--method", "PMF", "--eval", "RMSE,MAE"] + extra)
+        row = _mf_row(torch, "train_pmf", solver, s, col="RMSE")
+        row["mae_by_epoch"] = {int(r["iter"]): r["MAE"]
+                               for r in solver.history}
+        held["pmf_" + route] = solver
+        out[route] = row
+        ok = ok and row["ok"] and row["route"] == route
+    out["ok"] = ok
+    return out
+
+
+def phase_train_bpr(torch, tmp, held):
+    """--method BPR --loss_type LOG, the sparse step (the default), then
+    --dense_mode true at 2x lr (the slab's equal-epoch protocol,
+    scripts/parity_zoo.py): R@10 rises on both."""
+    out = dict(phase="train_bpr", users=6040, items=3706, D=10)
+    ok = True
+    for route, extra in (("sparse", []),
+                         ("slab", ["--dense_mode", "true", "--learn_rate",
+                                   "0.2"])):
+        solver, s = _mf_cli(torch, tmp, held["ml1m_data"], "ml1m_lowrank",
+                            ["--method", "BPR", "--loss_type", "LOG"]
+                            + extra)
+        row = _mf_row(torch, "train_bpr", solver, s)
+        held["bpr_" + route] = solver
+        out[route] = row
+        ok = ok and row["ok"] and row["route"] == route
+    out["ok"] = ok
+    return out
+
+
+def _warp_cfg(**kw):
+    """train_warp's configuration (WARP_TRAIN) as an MFConfig."""
+    from cdae_tpu_torch.models.mf import MFConfig
+
+    return MFConfig(**{**dict(num_dim=10, num_neg=5, loss="HINGE", beta=0.0,
+                              lambda_=0.1, learn_rate=0.1, batch_size=8192),
+                       **kw})
+
+
+# the slab's batch counts users: 64 of them (scripts/parity_zoo.py's
+# WARP_DENSE; 95 slabs an epoch), some 8,192 instances' worth as in
+# train_warp. From the 0.01-scale init the slab's first AdaGrad steps (beta
+# 0) move every coordinate by about lr, and R@10 dips before it rises,
+# cdae_tpu's slab and the port's alike (at 1,200 x 600, 64- and 256-user
+# slabs dip in epoch 1 and pass 0.15 in epoch 2); with 1,024 users a slab
+# ML-1M's R@10 was still below its start after 2 epochs
+WARP_ROUTES = (("slab", dict(dense_mode=True, warp_pool=1024,
+                             learn_rate=0.3, batch_size=64)),
+               ("pool_mask", dict(warp_pool=1024)),
+               ("pool_csr", dict(warp_pool=1024, dense_mode=False)),
+               ("scan", dict(dense_mode=False)))
+
+
+def phase_train_warp_routes(torch, held):
+    """2 epochs of train_warp's configuration on each of WARP's other
+    routes through Solver.train (TOPN at 0 and 2): the slab (pool 1024 at
+    3x lr and 64 users a slab, scripts/parity_zoo.py's WARP_DENSE), the
+    pool path with the
+    rated mask and with the CSR rows, and the scan path. R@10 rises on
+    each; the pool path gives the same bits with the mask as with the CSR
+    rows (the same draws and truth table); peak memory per route."""
+    from cdae_tpu_torch.models.mf import WARP
+    from cdae_tpu_torch.solver.solver import Solver, _params_finite
+
+    train, test = held["ml1m"][1]
+    out = dict(phase="train_warp_routes", epochs=2, batch=8192)
+    ok = True
+    params = {}
+    for route, kw in WARP_ROUTES:
+        model = WARP(_warp_cfg(**kw), device="cuda")
+        solver = Solver(model, max_iteration=2, eval_iterations=2, seed=SEED,
+                        verbose=False)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        solver.train(train, test, ["TOPN"])
+        torch.cuda.synchronize()
+        hist = solver.history
+        finite = _params_finite(solver.state.params)
+        extras = model._epoch_extras(solver.state)
+        out[route] = dict(
+            seconds=time.perf_counter() - t0,
+            slab="dense_R" in solver.state.aux, rated_mask=bool(extras),
+            recall_at_10={int(r["iter"]): r["R@10"] for r in hist},
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            params_finite=finite)
+        ok = ok and finite and hist[-1]["R@10"] > hist[0]["R@10"]
+        params[route] = solver.state.params
+        held["warp_" + route] = solver
+    mask, csr = params["pool_mask"], params["pool_csr"]
+    out["pool_mask_csr_bit_equal"] = all(torch.equal(mask[k], csr[k])
+                                         for k in mask)
+    out["ok"] = ok and out["pool_mask_csr_bit_equal"]
+    return out
+
+
+def phase_train_imf_mxu(torch, held):
+    """One epoch of train_imf_sparse's configuration with gather_mode="mxu"
+    (B9 gathers [uv | ub] and [iv | ib] rows) against the native gather
+    from the same reset and seed: the same bits (B9 copies rows)."""
+    import dataclasses
+
+    import cdae_tpu_torch.ops.pallas_kernels as P
+    from cdae_tpu_torch.models.mf import IMF
+
+    cfg = held["imf_sparse"].model.cfg
+    train = held["ml1m"][1][0]
+    params = {}
+    b9 = 0
+    for mode in ("mxu", "native"):
+        model = IMF(dataclasses.replace(cfg, gather_mode=mode),
+                    device="cuda")
+        state = model.reset(train, seed=SEED)
+        before = P.gather_rows_mxu.launches
+        model.train_one_iteration(state, SEED)
+        torch.cuda.synchronize()
+        if mode == "mxu":
+            b9 = P.gather_rows_mxu.launches - before
+        params[mode] = state.params
+    equal = all(torch.equal(params["mxu"][k], params["native"][k])
+                for k in params["mxu"])
+    steps = -(-len(train) // cfg.batch_size)
+    return dict(phase="train_imf_mxu", epochs=1, steps=steps,
+                b9_launches=b9, bit_equal_native=equal,
+                ok=equal and b9 == 2 * steps)
+
+
+MF_CHECKS = ("imf_sparse", "bpr_sparse", "pmf_slab", "warp_slab")
+
+
+def _mf_epochs(torch, held, key, epochs, **kw):
+    """``epochs`` epochs of the configuration of ``held[key]`` (with
+    ``kw``) from a reset with the run's seed, on its training split."""
+    import dataclasses
+
+    solver = held[key]
+    model = type(solver.model)(dataclasses.replace(solver.model.cfg, **kw),
+                               device="cuda")
+    data = (held["pmf_data"] if key.startswith("pmf")
+            else held["ml1m"][1])[0]
+    state = model.reset(data, seed=SEED)
+    for _ in range(epochs):
+        model.train_one_iteration(state, SEED)
+    torch.cuda.synchronize()
+    return model, state
+
+
+def phase_mf_checks(torch, held):
+    """IMF sparse, BPR sparse, PMF slab and the WARP slab: one epoch with
+    the kernels (B1, B2, B8: use_pallas on, scatter_mode auto) against one
+    with their plain versions (use_pallas off, scatter_mode "scatter":
+    the plain hash, the plain AdaGrad, index_add_) from the same reset and
+    seed, every table within 1e-4 relative; and two 2-epoch runs of each
+    default route, the same bits."""
+    out = dict(phase="mf_checks", tol=ROUTE_REL_TOL)
+    ok = True
+    for key in MF_CHECKS:
+        _, kern = _mf_epochs(torch, held, key, 1)
+        _, plain = _mf_epochs(torch, held, key, 1, use_pallas=False,
+                              scatter_mode="scatter")
+        rel = _rel_diff(torch, kern.params, plain.params)
+        _, a = _mf_epochs(torch, held, key, 2)
+        _, b = _mf_epochs(torch, held, key, 2)
+        equal = all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+        out[key] = dict(rel_diff_vs_plain=rel, runs_bit_equal=equal)
+        ok = ok and rel <= ROUTE_REL_TOL and equal
+    out["ok"] = ok
+    return out
+
+
+SPEED_MF = (("imf_slab", "imf"), ("imf_sparse", "imf_sparse"),
+            ("pmf_sparse", "pmf_sparse"), ("bpr_sparse", "bpr_sparse"),
+            ("bpr_slab", "bpr_slab"), ("warp_slab", "warp_slab"))
+
+
+def phase_train_speed_mf(torch, held):
+    """Warm training throughput of the new MF paths (the train_speed_fism
+    protocol): one warm-up epoch, 2 timed epochs (host clock between
+    synchronizes), users/s = users * epochs / wall; then whole epochs of
+    at least 16 steps under torch.profiler: launches a step, device ms,
+    idle share, and the device ms of B8 (plans and reduces), B1 and B2 (all
+    over ``epochs`` epochs); B1/B2/B8 wrapper launches a step; peak memory.
+    B2 launches once a step."""
+    import cdae_tpu_torch.ops.pallas_kernels as P
+    from cdae_tpu_torch.solver.solver import _params_finite
+
+    out = dict(phase="train_speed_mf")
+    ok = True
+    for route, key in SPEED_MF:
+        model, state = _mf_epochs(torch, held, key, 1)  # warm-up
+        data = (held["pmf_data"] if key.startswith("pmf")
+                else held["ml1m"][1])[0]
+        steps = (state.aux["dense_batches"][0].shape[0]
+                 if "dense_R" in state.aux
+                 else -(-len(data) // model.cfg.batch_size))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            model.train_one_iteration(state, SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (P.hw_uniform.launches, P.adagrad_update.launches,
+                  P.scatter_plan.launches, P.scatter_matmul.launches)
+        # at least 16 steps under the profiler (a slab epoch is one step)
+        reps = -(-16 // steps)
+
+        def epochs():
+            for _ in range(reps):
+                model.train_one_iteration(state, SEED)
+
+        prof = _profile(torch, epochs, groups=MF_GROUPS)
+        now = (P.hw_uniform.launches, P.adagrad_update.launches,
+               P.scatter_plan.launches, P.scatter_matmul.launches)
+        per = [(b - a) / (steps * reps) for a, b in zip(counts, now)]
+        prof["epochs"] = reps
+        prof["launches_per_step"] = prof.pop("device_kernels") / (steps
+                                                                  * reps)
+        finite = _params_finite(state.params)
+        out[route] = dict(
+            users=data.num_users, instances=len(data),
+            batch=model.cfg.batch_size, steps_per_epoch=steps,
+            seconds_2_epochs=wall, users_per_s=data.num_users * 2 / wall,
+            ms_per_step=wall * 1e3 / (2 * steps),
+            b1_launches_per_step=per[0], b2_launches_per_step=per[1],
+            b8_plans_per_step=per[2], b8_reduces_per_step=per[3],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            params_finite=finite, profiled_epoch=prof)
+        if route == "bpr_slab":
+            # the rescue draw BPR's slab computes every step (no host sync
+            # to test whether a row needs it), at the slab's shapes
+            from cdae_tpu_torch.models.mf import _rescue_draw
+
+            uids = state.aux["dense_batches"][0][0]
+            rows01 = state.aux["dense_R"][uids].to(torch.float32)
+            out[route]["rescue_device_ms"] = device_ms(
+                lambda: _rescue_draw(rows01, SEED, model.cfg))
+        ok = ok and finite and per[1] == 1.0
+        del state
+    out["ok"] = ok
+    return out
 
 
 # ------------------------------------------------- CDAE's sparse step ----
@@ -2067,6 +2456,29 @@ def main() -> int:
             lambda: phase_sparse_ml1m_checks(torch, held))
     else:
         failed.append("sparse CDAE phases (no sparse run to build on)")
+    if "ml1m" in held:
+        t_mf = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts("mf_training")
+            run("train_imf", lambda: phase_train_imf(torch, tmp, held))
+            run("train_imf_sparse",
+                lambda: phase_train_imf_sparse(torch, tmp, held))
+            run("train_pmf", lambda: phase_train_pmf(torch, tmp, held))
+            run("train_bpr", lambda: phase_train_bpr(torch, tmp, held))
+            run("train_warp_routes",
+                lambda: phase_train_warp_routes(torch, held))
+            if "imf_sparse" in held:
+                run("train_imf_mxu", lambda: phase_train_imf_mxu(torch, held))
+            read_counts("mf_training", launches, failed)
+        if all(key in held for _, key in SPEED_MF) and all(
+                key in held for key in MF_CHECKS):
+            run("mf_checks", lambda: phase_mf_checks(torch, held))
+            run("train_speed_mf", lambda: phase_train_speed_mf(torch, held))
+        else:
+            failed.append("MF checks (a training run to build on failed)")
+        emit(dict(phase="mf_wall", seconds=time.perf_counter() - t_mf))
+    else:
+        failed.append("MF phases (no ML-1M run to build on)")
     emit(dict(phase="wall", seconds=time.perf_counter() - t_start))
 
     table = []
@@ -2076,7 +2488,7 @@ def main() -> int:
         dev_ms = r.get("device_ms")  # B8's is a dict: its span's
         table.append(dict(name=name, route="cuda", source=source,
                           replaces=replaces,
-                          launches=by_path.get(paths[0], 0),
+                          launches=sum(by_path.get(p, 0) for p in paths),
                           launches_by_path=by_path,
                           max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                           device_ms=dev_ms.get("span")

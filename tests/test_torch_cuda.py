@@ -11,7 +11,12 @@ the same bits on every launch and over a shared plan; every fixed-order
 scatter mode routed to it) and row gather (B9, exact at every width) with
 the paths that launch them, two default-route WARP runs bit for bit, and
 CDAE's sparse step (its epoch with the kernels against their plain
-versions, two runs bit for bit, the corruption-0 dense/sparse identity).
+versions, two runs bit for bit, the corruption-0 dense/sparse identity),
+and the MF family's routes (IMF, PMF and BPR sparse and slab, WARP's slab,
+pool and scan: a step with the kernels against one with their plain
+versions, two runs bit for bit, the pool path's mask and CSR rows the same
+bits, B9 on IMF, and a failing kernel launch raising instead of falling
+back).
 Every test is marked ``cuda`` and skips when torch.cuda.is_available() is
 False (the kernels have no CPU mode).
 
@@ -1043,3 +1048,165 @@ def test_cdae_sparse_step_equals_dense_step_without_draws(cuda):
     for k in state.params:
         torch.testing.assert_close(state.params[k], dstate.params[k],
                                    rtol=2e-5, atol=1e-6)
+
+
+# ------------------------------------ the MF family's other routes ----
+
+_MF_ROUTES = {
+    # name: (model, config, rated data)
+    "imf_slab": ("IMF", dict(fast_rng=True), False),
+    "imf_sparse": ("IMF", dict(dense_mode=False, fast_rng=True), False),
+    "imf_sparse_row_update": ("IMF", dict(dense_mode=False, row_update=True),
+                              False),
+    "pmf_slab": ("PMF", {}, True),
+    "pmf_sparse": ("PMF", dict(dense_mode=False), True),
+    "bpr_sparse": ("BPR", dict(fast_rng=True), False),
+    "bpr_slab": ("BPR", dict(dense_mode=True, num_shared_neg=4,
+                             fast_rng=True), False),
+    "warp_slab": ("WARP", dict(dense_mode=True, warp_pool=128,
+                               fast_rng=True), False),
+    "warp_pool_mask": ("WARP", dict(warp_pool=128, fast_rng=True), False),
+    "warp_pool_csr": ("WARP", dict(warp_pool=128, dense_mode=False,
+                                   fast_rng=True), False),
+    "warp_scan": ("WARP", dict(dense_mode=False, num_tries=16,
+                               fast_rng=True), False),
+}
+
+
+def _mf(route, device, **kw):
+    """The route's model on low-rank data of 60 users x 80 items (rated
+    for PMF), batch 1024: one step (or one slab) an epoch. Returns the
+    model and its reset state."""
+    from cdae_tpu_torch.data.synthetic import (lowrank_interactions,
+                                               lowrank_rated)
+    from cdae_tpu_torch.models import mf
+
+    name, cfg, rated = _MF_ROUTES[route]
+    data = (lowrank_rated if rated else lowrank_interactions)(60, 80, 10,
+                                                              seed=3)
+    base = dict(num_dim=8, num_neg=3, batch_size=1024,
+                loss={"BPR": "LOG", "WARP": "HINGE"}.get(name, "SQUARE"))
+    if name == "WARP":
+        base.update(beta=0.0, lambda_=0.1)
+    model = getattr(mf, name)(mf.MFConfig(**{**base, **cfg, **kw}),
+                              device=device)
+    return model, model.reset(data, seed=1)
+
+
+def _rel(a, b):
+    return ((a.double() - b.double()).norm()
+            / b.double().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(_MF_ROUTES))
+def test_mf_route_step_kernels_match_plain(cuda, route):
+    """One step of each new MF route with the kernels (B1's hash draws, B8's
+    sums, B2) against one with their plain versions (use_pallas off: the
+    same hash draws from the plain hash, index_add_ sums, the plain
+    AdaGrad) from the same reset: every table within 1e-4 relative. The
+    kernel step launches B2 once (none with row_update, whose touched rows
+    sum through B8), B8 at least once, and B1 where it draws with
+    fast_rng; the plain step none of them."""
+    params = {}
+    for use_pallas in (True, False):
+        kw = dict(use_pallas=use_pallas)
+        if not use_pallas:
+            kw["scatter_mode"] = "scatter"
+        model, state = _mf(route, "cuda", **kw)
+        counts = (P.adagrad_update.launches, P.scatter_matmul.launches,
+                  P.scatter_plan.launches, P.hw_uniform.launches)
+        model.train_one_iteration(state, 7)
+        torch.cuda.synchronize()
+        now = (P.adagrad_update.launches, P.scatter_matmul.launches,
+               P.scatter_plan.launches, P.hw_uniform.launches)
+        if use_pallas:
+            assert now[0] == counts[0] + (0 if model.cfg.row_update else 1)
+            assert now[1] > counts[1] and now[2] > counts[2]
+            assert (now[3] > counts[3]) == model.cfg.fast_rng
+        else:
+            assert now == counts
+        params[use_pallas] = state.params
+    for k, want in params[False].items():
+        assert _rel(params[True][k], want) <= 1e-4, (route, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(_MF_ROUTES))
+def test_mf_default_routes_are_bit_reproducible(cuda, route):
+    """Two 2-epoch runs of each route on its defaults (scatter_mode auto,
+    which runs B8 on the card) give the same bits."""
+    runs = []
+    for _ in range(2):
+        model, state = _mf(route, "cuda", batch_size=128)
+        assert model.cfg.scatter_mode == "auto" and model.cfg.use_pallas
+        for _ in range(2):
+            model.train_one_iteration(state, 5)
+        torch.cuda.synchronize()
+        runs.append(state.params)
+    for k in runs[0]:
+        assert torch.equal(runs[0][k], runs[1][k]), (route, k)
+
+
+@pytest.mark.cuda
+def test_mf_pool_path_mask_equals_csr_on_the_card(cuda):
+    """WARP's pool path with the (U, I) rated mask and with the CSR rows
+    gives the same bits over 2 epochs (the same draws and truth table)."""
+    out = []
+    for route in ("warp_pool_mask", "warp_pool_csr"):
+        model, state = _mf(route, "cuda", batch_size=128)
+        assert bool(model._epoch_extras(state)) == (route == "warp_pool_mask")
+        for _ in range(2):
+            model.train_one_iteration(state, 5)
+        out.append(state.params)
+    for k in out[0]:
+        assert torch.equal(out[0][k], out[1][k]), k
+
+
+@pytest.mark.cuda
+def test_imf_mxu_gather_launches_b9_and_changes_no_bit(cuda):
+    """IMF's sparse step with gather_mode="mxu" gathers its rows with B9
+    (two launches a step: users, items) and gives the native gather's
+    bits."""
+    out = []
+    for mode in ("mxu", "native"):
+        model, state = _mf("imf_sparse", "cuda", gather_mode=mode,
+                           batch_size=128)
+        before = P.gather_rows_mxu.launches
+        model.train_one_iteration(state, 5)
+        steps = -(-len(state.aux["coo"][0]) // 128)
+        assert P.gather_rows_mxu.launches - before == (
+            2 * steps if mode == "mxu" else 0)
+        out.append(state.params)
+    for k in out[0]:
+        assert torch.equal(out[0][k], out[1][k]), k
+
+
+class _FailingLib:
+    """The kernel library with one entry point reporting a launch error."""
+
+    def __init__(self, real, name):
+        self._real, self._name = real, name
+
+    def __getattr__(self, attr):
+        if attr == self._name:
+            return lambda *args: 1  # cudaErrorInvalidValue
+        return getattr(self._real, attr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,entry", [
+    ("imf_slab", "cdae_scatter_reduce"),
+    ("imf_slab", "cdae_hw_uniform"),
+    ("bpr_sparse", "cdae_scatter_reduce"),
+    ("warp_scan", "cdae_hw_uniform"),
+])
+def test_mf_routes_do_not_fall_back(cuda, monkeypatch, route, entry):
+    """A kernel of a new path that fails to launch raises: the step does
+    not fall back to a plain version."""
+    from cdae_tpu_torch.ops import cuda_lib
+
+    model, state = _mf(route, "cuda")
+    monkeypatch.setattr(cuda_lib, "_lib", _FailingLib(cuda_lib.lib(), entry))
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        model.train_one_iteration(state, 5)

@@ -2,7 +2,8 @@
 update math, the dense path's step and a whole epoch with the very draws
 cdae_tpu makes injected, scoring and losses on carried parameters, and
 WARP end to end (Solver, resume, the guard, TOPN, the CLI). Also: the
-routes not ported yet raise, and the B8/B9 routes and FISM run.
+models not ported yet raise, and WARP's other routes, the B8/B9 routes and
+FISM run.
 
 Draws: cdae_tpu's step splits its key into (k1, k2); the count uniforms
 are jax.random.uniform(k1), the kernel route's seed is key_seed(k2) and the
@@ -241,7 +242,7 @@ def test_epoch_matches_with_injected_draws(splits, use_pallas, row_update):
     perm = np.array(jax.random.permutation(kperm, n))
     subs = jax.random.split(kstep, nb)
     sel = np.concatenate([perm, np.zeros(nb * B - n, perm.dtype)])
-    users, items, _, _ = tm._device_data(ts)
+    users, items, *_ = tm._device_data(ts)
     R = tm._epoch_extras(ts)[0]
 
     class Draws:
@@ -435,26 +436,29 @@ def test_cli_trains_warp(movielens_path, tmp_path):
 # ------------------------------------------------------ not ported yet ----
 
 def test_unported_routes_raise(splits):
+    """What is still unported raises naming its ROADMAP entry: ALS, WRMF,
+    NegMF, LINEAR, FM, ItemCF and UserCF, and --sharded. WARP's slab, pool
+    and scan routes and the rest of the MF family train now (their own
+    tests: test_torch_warp_routes.py, test_torch_mf_zoo.py), as do B9
+    (gather_mode="mxu") and B8 (the pallas scatter modes) on WARP."""
     (_, _), (ttrain, _) = splits
 
     def train(**kw):
         m = tmf.WARP(tmf.MFConfig(**{**WARP_KW, **kw}), device="cpu")
         m.train_one_iteration(m.reset(ttrain))
 
-    with pytest.raises(NotImplementedError, match="slab.*A8"):
-        train(dense_mode=True)
-    with pytest.raises(NotImplementedError, match="pool.*A8"):
-        train(warp_pool=64)
-    with pytest.raises(NotImplementedError, match="scan.*A8"):
-        train(dense_mode=False)
-    # B9 (gather_mode="mxu") and B8 (the pallas scatter modes) now run
+    train(dense_mode=True, warp_pool=64)
+    train(warp_pool=64)
+    train(dense_mode=False)
     train(gather_mode="mxu")
     train(scatter_mode="pallas")
     train(gather_mode="mxu", scatter_mode="pallas_bf16")
-    for name, entry in (("BPR", "A8"), ("pmf", "A8"), ("IMF", "A8"),
-                        ("ALS", "A9")):
-        with pytest.raises(NotImplementedError, match=entry):
+    for name in ("ALS", "wrmf", "NegMF", "LINEAR", "FM", "ItemCF",
+                 "USERCF"):
+        with pytest.raises(NotImplementedError, match="A9"):
             tmodels.create_model(name, device="cpu")
+    for name, cls in (("BPR", tmf.BPR), ("pmf", tmf.PMF), ("IMF", tmf.IMF)):
+        assert isinstance(tmodels.create_model(name, device="cpu"), cls)
     from cdae_tpu_torch.models.fism import FISM, FISMPair
     assert isinstance(tmodels.create_model("FISM", device="cpu"), FISM)
     assert isinstance(tmodels.create_model("fismpair", device="cpu"),
@@ -462,5 +466,8 @@ def test_unported_routes_raise(splits):
     with pytest.raises(ValueError, match="unknown"):
         tmodels.create_model("NOPE", device="cpu")
     assert isinstance(tmodels.create_model("warp", device="cpu"), tmf.WARP)
-    with pytest.raises(SystemExit, match="later slice"):
-        tcli.run(["--task", "test", "--method", "IMF", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="later slice.*A9"):
+        tcli.run(["--task", "test", "--method", "ALS", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="sharded.*later slice"):
+        tcli.run(["--task", "test", "--method", "IMF", "--sharded", "true",
+                  "--device", "cpu"])

@@ -50,10 +50,11 @@ def test_cuda_request_raises_without_gpu(monkeypatch, tmp_path):
 
 def test_later_tasks_and_methods_exit_with_message(movielens_path,
                                                    tmp_path):
-    """The sweep task and the unported methods exit naming a later slice;
-    --task train trains Popularity first (it once refused to run without
-    --skip_popularity): with --method NONE it trains Popularity alone and
-    returns its TOPN row, as cdae_tpu's CLI does."""
+    """The sweep task, the unported methods (ALS here) and --sharded exit
+    naming a later slice; --task train trains Popularity first (it once
+    refused to run without --skip_popularity): with --method NONE it
+    trains Popularity alone and returns its TOPN row, as cdae_tpu's CLI
+    does."""
     from cdae_tpu_torch import cli
 
     with pytest.raises(SystemExit, match="later slice"):
@@ -69,7 +70,11 @@ def test_later_tasks_and_methods_exit_with_message(movielens_path,
     assert [r["iter"] for r in solver.history] == [0.0, 1.0]
     assert 0.0 < solver.history[-1]["R@10"] <= 1.0
     with pytest.raises(SystemExit, match="later slice"):
-        cli.run(["--task", "test", "--method", "BPR", "--device", "cpu"])
+        cli.run(["--task", "test", "--method", "ALS", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="later slice"):
+        cli.run(["--task", "train", "--method", "BPR", "--sharded", "true",
+                 "--cache_file", cache, "--device", "cpu",
+                 "--skip_popularity"])
 
 
 def test_prepare_and_split_tasks_match_cdae_tpu(movielens_path, tmp_path):
