@@ -1,5 +1,5 @@
-"""CLI of the port (port of cdae_tpu/cli.py, the CDAE, MF-family, FISM and
-Popularity tasks).
+"""CLI of the port (port of cdae_tpu/cli.py, the CDAE, MF-family, FISM,
+ALS/WRMF, ItemCF/UserCF and Popularity tasks).
 
 The flag surface is cdae_tpu's, so command lines carry over, plus
 ``--device`` (default ``cuda``; ``--device cpu`` is the only way onto the
@@ -11,8 +11,9 @@ CPU -- a CUDA request without a GPU raises). Tasks:
               evaluate the Popularity baseline (one TOPN row; skipped with
               --skip_popularity), as cdae_tpu does; then, unless --method
               is NONE, train --method CDAE, MF (IMF), IMF, PMF, BPR, WARP,
-              FISM, FISMPAIR or POP with Solver.train (SGDSolver with
-              --learn_rate for FISM), evaluating every --eval_iters with
+              FISM, FISMPAIR, ALS, WRMF, ITEMCF, USERCF or POP (or
+              POPULARITY) with Solver.train (SGDSolver with --learn_rate
+              for FISM), evaluating every --eval_iters with
               --eval (TOPN, RANKING, RMSE, MAE); --init_checkpoint resumes,
               --checkpoint / --checkpoint_every write checkpoints. CDAE
               trains in dense mode while the int8 (U, I) matrix fits
@@ -20,9 +21,9 @@ CPU -- a CUDA request without a GPU raises). Tasks:
   test     -- load split caches, restore --init_checkpoint (a cdae_tpu or
               cdae_tpu_torch checkpoint), evaluate any of those methods
 
-``sweep``, ``--sharded`` and every other method (ALS, WRMF, the linear
-and neighbour models) come with later slices of the port and exit with a
-message saying so.
+``sweep``, ``--sharded`` and the feature-group methods (NEGMF, LINEAR,
+FM) come with later slices of the port and exit with a message saying
+so; a method cdae_tpu does not know exits with ``unknown --method``.
 
 Run: ``python -m cdae_tpu_torch.cli --task train --method CDAE ...``
 """
@@ -61,8 +62,8 @@ def _booly(v: str) -> bool:
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cdae_tpu_torch",
-        description="CDAE, MF-family and FISM training and top-N serving "
-                    "on PyTorch/CUDA (cdae_tpu port)",
+        description="CDAE and model-zoo training and top-N serving on "
+                    "PyTorch/CUDA (cdae_tpu port)",
     )
     # -- cdae_tpu's flag surface --
     p.add_argument("--input_file", default="./yelp_10core.txt")
@@ -141,22 +142,30 @@ def build_model(args):
     """--method dispatch over the port's ``MODEL_REGISTRY``; the config
     comes from the flags by the model's config class, as in cdae_tpu."""
     from cdae_tpu_torch.models import (LATER_MODELS, MODEL_REGISTRY,
-                                       CDAEConfig, FISMConfig, MFConfig)
+                                       ALSConfig, CDAEConfig, FISMConfig,
+                                       MFConfig, SimilarityConfig)
 
     method = args.method.upper()
-    method = "IMF" if method == "MF" else method  # the reference's MF
-    if method not in MODEL_REGISTRY:
-        entry = LATER_MODELS.get(method)
+    # the reference's MF is IMF; cdae_tpu takes POPULARITY for POP
+    method = {"MF": "IMF", "POPULARITY": "POP"}.get(method, method)
+    if method in LATER_MODELS:
         raise SystemExit(
-            f"--method {args.method} {_LATER}"
-            + (f" (ROADMAP {entry})" if entry else "")
-            + f"; ported: {', '.join(MODEL_REGISTRY)}")
+            f"--method {args.method} {_LATER} (ROADMAP "
+            f"{LATER_MODELS[method]}); ported: {', '.join(MODEL_REGISTRY)}")
+    if method not in MODEL_REGISTRY:
+        raise SystemExit(f"unknown --method {args.method}")
     if args.sharded:
         raise SystemExit(f"--sharded {_LATER}")
     dense = None if args.dense_mode == "auto" else _booly(args.dense_mode)
     cls, cfg_cls = MODEL_REGISTRY[method]
     if cfg_cls is None:
         return cls(device=args.device)
+    if cfg_cls is SimilarityConfig:
+        return cls(SimilarityConfig(sim_type=args.sim_type,
+                                    topk=args.sim_topk), device=args.device)
+    if cfg_cls is ALSConfig:
+        return cls(ALSConfig(lambda_=args.lambda_, scalar=args.scalar,
+                             num_dim=args.num_dim), device=args.device)
     if cfg_cls is MFConfig:
         # --dense_mode true opts BPR and WARP into their slab steps
         return cls(MFConfig(

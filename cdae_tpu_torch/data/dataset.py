@@ -1,12 +1,12 @@
 """Sparse user-item interaction datasets (numpy, host side).
 
 The port's copy of cdae_tpu/data/dataset.py, restricted to what the
-ported models need: the COO ``Interactions`` container, its CSR, padded
-and dense views, the per-user split and the two built-in text parsers.
-Loading and CSR building are pure Python/numpy (no native helper library),
-and ``split_by_user``
-draws from the same seeded numpy stream as cdae_tpu, so both packages
-produce the same split from the same data and seed.
+ported models need: the COO ``Interactions`` container, its CSR (by user
+and by item), padded, item-side and dense views, the per-user split and
+the two built-in text parsers. Loading and CSR building are pure
+Python/numpy (no native helper library), and ``split_by_user`` draws
+from the same seeded numpy stream as cdae_tpu, so both packages produce
+the same split from the same data and seed.
 """
 
 from __future__ import annotations
@@ -93,6 +93,7 @@ class Interactions:
         self.user_vocab = user_vocab
         self.item_vocab = item_vocab
         self._csr_user: Optional[CSR] = None
+        self._csr_item: Optional[CSR] = None
 
     @classmethod
     def from_text(
@@ -163,6 +164,21 @@ class Interactions:
                 self.users, self.items, self.ratings, self.num_users
             )
         return self._csr_user
+
+    def csr_by_item(self) -> CSR:
+        """Per-item sorted user lists."""
+        if self._csr_item is None:
+            self._csr_item = _build_csr(
+                self.items, self.users, self.ratings, self.num_items
+            )
+        return self._csr_item
+
+    def by_item(self) -> "Interactions":
+        """The same interactions with the axes swapped (items as the rows):
+        its ``padded()`` holds each item's users, ascending, padded with
+        ``num_users``."""
+        return Interactions(self.items, self.users, self.ratings,
+                            self.num_items, self.num_users)
 
     def padded(self) -> PaddedUserBatch:
         """Padded per-user item lists for ALL users (0..num_users-1); items

@@ -121,6 +121,30 @@ Phases, each printed as one JSON line:
   train_speed_mf -- warm users/s, ms and launches a step, B1/B2/B8 launches
              a step, device ms (B8's apart), idle share and peak memory for
              IMF (slab, sparse), PMF sparse, BPR (sparse, slab), WARP slab
+  ALS/WRMF and ItemCF/UserCF on the same ML-1M-scale split (counts from 0
+  before serve_itemcf, read after serve_usercf: the cf_serving path, B8's
+  plan and reduce):
+    train_als -- CLI --method ALS, D=10, lambda 0.01, 10 iterations,
+             Popularity first: R@10 rises from iteration 0
+    train_wrmf -- CLI --method WRMF --scalar 40 (the ridge solve), then the
+             eigh solve through Solver.train: R@10 rises in both
+    serve_itemcf / serve_usercf -- CLI --method ITEMCF / USERCF, Jaccard,
+             top-50 (the neighbour build, then TOPN, whose scores B8
+             sums): UserCF's R@10 above Popularity's on the same split
+             (ItemCF's printed beside it); a warm neighbour build and a
+             warm TOPN pass timed
+  cf_checks -- two scorings of one batch and two TOPN passes of each CF
+             model the same bits, R@10 equal to the CPU build's (1e-6),
+             the neighbour ids equal the CPU's; B8 at the ItemCF scoring
+             shape against its plain version (its kernel-table row,
+             beside index_add_); the two sweeps of one ALS and one
+             WRMF-ridge iteration on the card against the CPU's from the
+             same inputs, 1e-4 relative per table on the full-rank rows;
+             a whole iteration from the trained factors against the CPU's
+             beside the CPU's own one-ulp spread (printed)
+  zoo_speed -- ALS, WRMF ridge and WRMF eigh: ms an iteration (warm,
+             synchronised), device ms and idle share under torch.profiler,
+             peak memory
 Then the whole run's wall time, the kernel table (each kernel's launches
 summed over the main paths that run it, beside them by path; B8's plan has
 a row of its own; a kernel timed
@@ -202,17 +226,18 @@ KERNELS = {
                              "cdae_tpu_torch/csrc/warp_select.cu",
                              "cdae_tpu/ops/pallas_kernels.py:1028",
                              ("warp_training", "warp_mxu")),
-    # WARP's default route and CDAE's sparse step sum through B8 too
+    # WARP's default route, CDAE's sparse step and the ItemCF/UserCF
+    # scoring sum through B8 too
     "scatter_matmul": ("pallas_kernels", "cdae_tpu_torch/csrc/scatter_rows.cu",
                        "cdae_tpu/ops/pallas_kernels.py:1147",
                        ("fism_training", "warp_training", "warp_mxu",
-                        "sparse_training", "mf_training")),
+                        "sparse_training", "mf_training", "cf_serving")),
     # B8's id sort (the TPU kernel contracts one-hot tiles and sorts
     # nothing): a wrapper and a count of its own
     "scatter_plan": ("pallas_kernels", "cdae_tpu_torch/csrc/scatter_rows.cu",
                      "cdae_tpu/ops/pallas_kernels.py:1147",
                      ("fism_training", "warp_training", "warp_mxu",
-                      "sparse_training", "mf_training")),
+                      "sparse_training", "mf_training", "cf_serving")),
     "gather_rows_mxu": ("pallas_kernels", "cdae_tpu_torch/csrc/gather_rows.cu",
                         "cdae_tpu/ops/pallas_kernels.py:856",
                         ("warp_mxu", "mf_training")),
@@ -2325,6 +2350,428 @@ def phase_sparse_ml1m_checks(torch, held):
                 and rel1024 <= ROUTE_REL_TOL)
 
 
+# ------------------------------------------ ALS/WRMF and ItemCF/UserCF ----
+
+ZOO_TRAIN = ["--task", "train", "--num_dim", "10", "--lambda", "0.01",
+             "--max_iters", "10", "--eval_iters", "5", "--seed", str(SEED),
+             "--test_ratio", "0.2"]
+CF_TRAIN = ["--task", "train", "--sim_type", "JACCARD", "--sim_topk", "50",
+            "--max_iters", "1", "--skip_popularity", "--seed", str(SEED),
+            "--test_ratio", "0.2"]
+ALS_ITER_TOL = 1e-4  # a sweep on the card against the CPU's, per table
+# the same on every row, thin ones too: a row with fewer than D observations
+# has a singular Gram up to lambda, or WRMF's jitter, and f32 rounding sets
+# its null-space part on either device (tests/test_torch_als.py's limit)
+ALS_THIN_TOL = 2e-3
+# an iteration from the trained factors: the card's distance from the same
+# iteration in f64 (ALS), or from the CPU's (WRMF ridge, whose jitter scales
+# with the dtype's eps, so f64 solves another system), at most this many
+# times the CPU's own f32 distance from f64 (ALS) or the larger of the two
+# devices' one-ulp spreads (WRMF)
+ALS_ROUNDING_MULT = 2.0
+CF_R10_TOL = 1e-6  # a CF model's R@10 on the card against the CPU build's
+
+
+def _zoo_cli(torch, tmp, held, argv):
+    """cli.train of ``argv`` + the cached ML-1M-scale low-rank data;
+    returns the Solver and the task's seconds."""
+    from cdae_tpu_torch import cli
+    from cdae_tpu_torch.data import io as data_io
+
+    cache = os.path.join(tmp, "ml1m_lowrank.bin")
+    if not os.path.exists(cache):
+        data_io.save_interactions(held["ml1m_data"], cache)
+    t0 = time.perf_counter()
+    solver = cli.train(cli.build_arg_parser().parse_args(
+        argv + ["--cache_file", cache]))
+    torch.cuda.synchronize()
+    return solver, time.perf_counter() - t0
+
+
+def _popularity_r10(torch, held) -> float:
+    """Popularity's R@10 on the ML-1M-scale split (the CF gates' floor)."""
+    if "pop_r10" not in held:
+        from cdae_tpu_torch.evaluation import Evaluation
+        from cdae_tpu_torch.models import Popularity
+
+        train, test = held["ml1m"][1]
+        model = Popularity(device="cuda")
+        held["pop_r10"] = Evaluation.create("TOPN").evaluate(
+            model, model.reset(train), test, train)["R@10"]
+    return held["pop_r10"]
+
+
+def _zoo_row(phase, solver, seconds, **extra):
+    """A training phase's row: R@10 at each eval; ok when it rose from
+    iteration 0 and the factors stayed finite."""
+    from cdae_tpu_torch.solver.solver import _params_finite
+
+    hist = solver.history
+    finite = _params_finite(solver.state.params)
+    return dict(phase=phase, method=solver.model.name,
+                cfg={k: getattr(solver.model.cfg, k) for k in
+                     ("num_dim", "lambda_", "scalar", "w_solver",
+                      "solve_batch")},
+                cli_seconds=seconds,
+                recall_at_10={int(r["iter"]): r["R@10"] for r in hist},
+                params_finite=finite,
+                ok=finite and hist[-1]["R@10"] > hist[0]["R@10"], **extra)
+
+
+def phase_train_als(torch, tmp, held):
+    """CLI --task train --method ALS on the ML-1M-scale low-rank data, D=10,
+    lambda 0.01, 10 iterations, Popularity first: R@10 rises from
+    iteration 0."""
+    solver, s = _zoo_cli(torch, tmp, held, ZOO_TRAIN + ["--method", "ALS"])
+    held["als"] = solver
+    return _zoo_row("train_als", solver, s)
+
+
+def phase_train_wrmf(torch, tmp, held):
+    """CLI --method WRMF --scalar 40 (the ridge solve), then the eigh solve
+    through the library (--w_solver is no cdae_tpu flag) under Solver.train
+    with the same flags: R@10 rises in both."""
+    import dataclasses
+
+    from cdae_tpu_torch.models import WRMF
+    from cdae_tpu_torch.solver.solver import Solver
+
+    solver, s = _zoo_cli(torch, tmp, held,
+                         ZOO_TRAIN + ["--method", "WRMF", "--scalar", "40",
+                                      "--skip_popularity"])
+    held["wrmf"] = solver
+    row = _zoo_row("train_wrmf", solver, s)
+    train, test = held["ml1m"][1]
+    eigh = Solver(WRMF(dataclasses.replace(solver.model.cfg,
+                                           w_solver="eigh"), device="cuda"),
+                  max_iteration=10, eval_iterations=5, seed=SEED,
+                  verbose=False)
+    t0 = time.perf_counter()
+    eigh.train(train, test, ["TOPN"])
+    torch.cuda.synchronize()
+    held["wrmf_eigh"] = eigh
+    erow = _zoo_row("train_wrmf", eigh, time.perf_counter() - t0)
+    row["eigh"] = {k: erow[k] for k in ("cli_seconds", "recall_at_10",
+                                        "params_finite", "ok")}
+    row["ok"] = row["ok"] and erow["ok"]
+    return row
+
+
+def _serve_cf(torch, tmp, held, method):
+    """CLI --method ITEMCF / USERCF (Jaccard, top-50; the neighbour build
+    at reset, TOPN at iterations 0 and 1), then a warm neighbour build and
+    a warm TOPN pass timed: the warm pass repeats the CLI's R@10, and
+    UserCF's R@10 is above Popularity's on the same split. ItemCF's is
+    printed beside Popularity's and not gated on it: on this low-rank,
+    popularity-skewed data Jaccard ItemCF ranks below Popularity in the
+    reference semantics too (the CPU build, whose lists equal cdae_tpu's
+    bit for bit, gives the same R@10; cf_checks holds the card to it)."""
+    import numpy as np
+
+    from cdae_tpu_torch.evaluation import Evaluation
+
+    solver, s = _zoo_cli(torch, tmp, held, CF_TRAIN + ["--method", method])
+    held[method.lower()] = solver
+    model, state = solver.model, solver.state
+    train, test = held["ml1m"][1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.reset(train)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ev = Evaluation.create("TOPN")
+    ev.evaluate(model, state, test, train)  # warm: batches staged
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ev.evaluate(model, state, test, train)
+    wall = time.perf_counter() - t0
+    n_val = int((np.diff(test.csr().indptr) > 0).sum())
+    pop = _popularity_r10(torch, held)
+    ids = state.params["nbr_ids"]
+    above = res["R@10"] > pop
+    return dict(phase=f"serve_{method.lower()}", method=model.name,
+                sim_type=model.cfg.sim_type, topk=model.cfg.topk,
+                neighbours=list(ids.shape), cli_seconds=s,
+                build_seconds=build_s, recall_at_10=res["R@10"],
+                map_at_10=res["MAP@10"], popularity_recall_at_10=pop,
+                above_popularity=above, val_users=n_val, topn_seconds=wall,
+                topn_users_per_s=n_val / wall,
+                ok=(above or method == "ITEMCF")
+                and res["R@10"] == solver.history[-1]["R@10"])
+
+
+def phase_serve_itemcf(torch, tmp, held):
+    return _serve_cf(torch, tmp, held, "ITEMCF")
+
+
+def phase_serve_usercf(torch, tmp, held):
+    return _serve_cf(torch, tmp, held, "USERCF")
+
+
+def _cf_batch(torch, held):
+    """The last (longest-row) TOPN batch of the ML-1M-scale split: uids
+    and the rated rows on the card."""
+    from cdae_tpu_torch.evaluation import Evaluation
+
+    train, test = held["ml1m"][1]
+    _, batches = Evaluation.create("TOPN")._batches(test, train,
+                                                    torch.device("cuda"))
+    uids, rated_items, rated_mask = batches[-1][:3]
+    return uids, rated_items, rated_mask
+
+
+def _cf_kernel_row(torch, held, results):
+    """B8 at the ItemCF scoring shape (the last TOPN batch's terms, P =
+    B * L * K, into B * I rows of one column): against its plain version,
+    its span and device time beside index_add_'s, and the byte bound."""
+    import cdae_tpu_torch.ops.pallas_kernels as P
+    from cdae_tpu_torch.models.similarity import _itemcf_terms
+
+    solver = held["itemcf"]
+    state = solver.state
+    uids, rated_items, rated_mask = _cf_batch(torch, held)
+    keys, vals = _itemcf_terms(state.params["nbr_ids"],
+                               state.params["nbr_sims"], rated_items,
+                               rated_mask, state.num_items)
+    B, I = rated_items.shape[0], state.num_items
+    N, Pn = B * I, keys.shape[0]
+    out = P.scatter_matmul(keys, vals, N)
+    plain = P.scatter_matmul_plain(keys, vals, N)
+    torch.cuda.synchronize()
+    ok, err = _rows_ok(torch, out, plain)
+    valid = keys < N
+    lib_idx = torch.where(valid, keys, N)
+    plan = P.scatter_plan(keys, N)
+    row = dict(phase="kernel_cf", kernel="scatter_matmul",
+               case="itemcf_scores", B=B, I=I, P=Pn, N=N, C=1,
+               valid_terms=int(valid.sum()), rtol=ROWS_RTOL,
+               atol_scale=ROWS_ATOL, max_abs_err=err, ok=ok,
+               ms=median_ms(lambda: P.scatter_matmul(keys, vals, N)),
+               plain_ms=median_ms(lambda: P.scatter_matmul_plain(keys, vals,
+                                                                 N)),
+               library="index_add_",
+               library_ms=median_ms(lambda: torch.zeros(
+                   N + 1, device=keys.device).index_add_(0, lib_idx, vals)),
+               device_ms=dict(
+                   span=device_ms(lambda: P.scatter_matmul(keys, vals, N)),
+                   plan=device_ms(lambda: P.scatter_plan(keys, N)),
+                   reduce=device_ms(lambda: P.scatter_matmul(
+                       keys, vals, N, plan=plan)),
+                   index_add=device_ms(lambda: torch.zeros(
+                       N + 1, device=keys.device).index_add_(0, lib_idx,
+                                                             vals))),
+               # ids and values read once, the rows written once; one add
+               # per valid term
+               **bound(12.0 * Pn + 4.0 * N, float(valid.sum())))
+    record(results, "scatter_matmul", row)
+    return row
+
+
+def _als_iteration_on(torch, cls, cfg, train, dev, params):
+    """One iteration of ``cls(cfg)`` on ``dev`` from ``params`` (in
+    ``cfg.dtype``); the result on the CPU."""
+    model = cls(cfg, device=dev)
+    state = model.reset(train, seed=SEED)
+    state.params = {k: v.to(dev, cfg.dtype) for k, v in params.items()}
+    model.train_one_iteration(state, SEED)
+    return {k: v.cpu() for k, v in state.params.items()}
+
+
+def _als_sweeps_vs_cpu(torch, cls, cfg, train):
+    """The two sweeps of one iteration on the card and on the CPU, each
+    from the same inputs: the user sweep from N(0, 0.3) factors, the item
+    sweep from the CPU's new user factors. Gated (ALS_ITER_TOL, relative
+    per table) on the rows with at least 2 * D observations, whose Grams
+    have full rank, and (ALS_THIN_TOL) on every row."""
+    import numpy as np
+
+    from cdae_tpu_torch.models.als import _sweep
+
+    rng = np.random.default_rng(SEED)
+    D = cfg.num_dim
+    p0 = torch.from_numpy((rng.standard_normal((train.num_users, D))
+                           * 0.3).astype(np.float32))
+    q0 = torch.from_numpy((rng.standard_normal((train.num_items, D))
+                           * 0.3).astype(np.float32))
+    sides = {dev: cls(cfg, device=dev).reset(train, seed=SEED).aux
+             for dev in ("cuda", "cpu")}
+    args = (cfg.lambda_, cfg.scalar, cls.weighted, cfg.w_solver)
+    p = {dev: _sweep(p0.to(dev), q0.to(dev), sides[dev]["dev_user_side"],
+                     *args).cpu() for dev in sides}
+    q = {dev: _sweep(q0.to(dev), p["cpu"].to(dev),
+                     sides[dev]["dev_item_side"], *args).cpu()
+         for dev in sides}
+    full_u = torch.from_numpy(np.bincount(train.users,
+                                          minlength=train.num_users)
+                              >= 2 * D)
+    full_i = torch.from_numpy(np.bincount(train.items,
+                                          minlength=train.num_items)
+                              >= 2 * D)
+    out = dict(full_rank_users=int(full_u.sum()),
+               full_rank_items=int(full_i.sum()),
+               user_sweep_rel_diff=_rel_diff(torch, {"p": p["cuda"][full_u]},
+                                             {"p": p["cpu"][full_u]}),
+               item_sweep_rel_diff=_rel_diff(torch, {"q": q["cuda"][full_i]},
+                                             {"q": q["cpu"][full_i]}),
+               user_sweep_rel_diff_all_rows=_rel_diff(
+                   torch, {"p": p["cuda"]}, {"p": p["cpu"]}),
+               item_sweep_rel_diff_all_rows=_rel_diff(
+                   torch, {"q": q["cuda"]}, {"q": q["cpu"]}))
+    out["ok"] = (max(out["user_sweep_rel_diff"],
+                     out["item_sweep_rel_diff"]) <= ALS_ITER_TOL
+                 and max(out["user_sweep_rel_diff_all_rows"],
+                         out["item_sweep_rel_diff_all_rows"])
+                 <= ALS_THIN_TOL)
+    return out
+
+
+def _als_trained_vs_cpu(torch, cls, cfg, train, params):
+    """One iteration from the trained factors ``params`` on the card, on
+    the CPU, on the CPU in f64, and on each device from the factors moved
+    by one ulp. The trained low-rank factors make the Grams
+    ill-conditioned, so any two f32 solves of the same system differ far
+    more than the sweeps from N(0, 0.3) factors do: the card passes when
+    its distance is at most ALS_ROUNDING_MULT times the f32 rounding
+    measured on the CPU (ALS: the card's and the CPU's distances from f64;
+    WRMF ridge, whose jitter scales with the dtype's eps: the card's
+    distance from the CPU against the larger one-ulp spread)."""
+    import dataclasses
+
+    start = {k: v.cpu() for k, v in params.items()}
+    g = torch.Generator().manual_seed(SEED)
+    ulp = {k: v * (1.0 + torch.finfo(torch.float32).eps * torch.sign(
+        torch.randn(v.shape, generator=g))) for k, v in start.items()}
+    runs = [("cuda", "cuda", cfg, start), ("cpu", "cpu", cfg, start),
+            ("cuda_ulp", "cuda", cfg, ulp), ("cpu_ulp", "cpu", cfg, ulp)]
+    if not cls.weighted:
+        runs.append(("cpu_f64", "cpu",
+                     dataclasses.replace(cfg, dtype=torch.float64), start))
+    res = {name: _als_iteration_on(torch, cls, c, train, dev, f)
+           for name, dev, c, f in runs}
+    out = dict(rel_diff_vs_cpu=_rel_diff(torch, res["cuda"], res["cpu"]),
+               cpu_ulp_spread=_rel_diff(torch, res["cpu_ulp"], res["cpu"]),
+               card_ulp_spread=_rel_diff(torch, res["cuda_ulp"],
+                                         res["cuda"]),
+               mult=ALS_ROUNDING_MULT)
+    if cls.weighted:
+        out["ok"] = out["rel_diff_vs_cpu"] <= ALS_ROUNDING_MULT * max(
+            out["cpu_ulp_spread"], out["card_ulp_spread"])
+    else:
+        out.update(card_rel_diff_vs_f64=_rel_diff(torch, res["cuda"],
+                                                  res["cpu_f64"]),
+                   cpu_rel_diff_vs_f64=_rel_diff(torch, res["cpu"],
+                                                 res["cpu_f64"]))
+        out["ok"] = (out["card_rel_diff_vs_f64"]
+                     <= ALS_ROUNDING_MULT * out["cpu_rel_diff_vs_f64"])
+    return out
+
+
+def phase_cf_checks(torch, held, results):
+    """Two ItemCF and two UserCF scorings of one batch, and two TOPN passes,
+    the same bits, and R@10 within 1e-6 of the CPU build's; B8's CF sums
+    against their plain version (B8's tolerance) and its kernel row at the
+    ItemCF scoring shape; the neighbour ids built on the card equal the
+    CPU's; the two sweeps of one
+    ALS and one WRMF-ridge iteration on the card against the CPU's from
+    the same inputs, 1e-4 relative per table on the full-rank rows and
+    2e-3 on all (_als_sweeps_vs_cpu); and a whole iteration from the
+    trained factors, within twice the f32 rounding the CPU shows
+    (_als_trained_vs_cpu)."""
+    from cdae_tpu_torch.evaluation import Evaluation
+    from cdae_tpu_torch.models import ALS, WRMF
+    from cdae_tpu_torch.ops.topk import topk_unrated
+
+    out = dict(phase="cf_checks", tol=ALS_ITER_TOL, thin_tol=ALS_THIN_TOL)
+    ok = True
+    train, test = held["ml1m"][1]
+    for key in ("itemcf", "usercf"):
+        solver = held[key]
+        model, state = solver.model, solver.state
+        uids, rated_items, rated_mask = _cf_batch(torch, held)
+        a = model.batch_scores(state, uids, rated_items, rated_mask)
+        b = model.batch_scores(state, uids, rated_items, rated_mask)
+        top_a, _ = topk_unrated(a, rated_items, 10)
+        top_b, _ = topk_unrated(b, rated_items, 10)
+        runs = [Evaluation.create("TOPN").evaluate(model, state, test, train)
+                for _ in range(2)]
+        cpu_model = type(model)(model.cfg, device="cpu")
+        cpu = cpu_model.reset(train)
+        cpu_r10 = Evaluation.create("TOPN").evaluate(cpu_model, cpu, test,
+                                                     train)["R@10"]
+        ids_equal = torch.equal(state.params["nbr_ids"].cpu(),
+                                cpu.params["nbr_ids"])
+        sims_err = (state.params["nbr_sims"].cpu()
+                    - cpu.params["nbr_sims"]).abs().max().item()
+        same = bool(torch.equal(a, b) and torch.equal(top_a, top_b))
+        topn_equal = all(runs[0][c] == runs[1][c]
+                         for c in ("P@10", "R@10", "MAP@10"))
+        r10_close = abs(runs[0]["R@10"] - cpu_r10) <= CF_R10_TOL
+        out[key] = dict(batch_users=len(uids), scores_bit_equal=same,
+                        topn_equal=topn_equal, nbr_ids_equal_cpu=ids_equal,
+                        nbr_sims_max_abs_err_cpu=sims_err,
+                        recall_at_10=runs[0]["R@10"], cpu_recall_at_10=cpu_r10)
+        ok = ok and same and topn_equal and ids_equal and r10_close
+    row = _cf_kernel_row(torch, held, results)
+    emit(row)
+    out["b8_itemcf"] = dict(max_abs_err=row["max_abs_err"], ok=row["ok"])
+    ok = ok and row["ok"]
+    for key, cls in (("als", ALS), ("wrmf", WRMF)):
+        cfg = held[key].model.cfg
+        out[key] = sweeps = _als_sweeps_vs_cpu(torch, cls, cfg, train)
+        sweeps["trained_iteration"] = trained = _als_trained_vs_cpu(
+            torch, cls, cfg, train, held[key].state.params)
+        ok = ok and sweeps["ok"] and trained["ok"]
+    out["ok"] = ok
+    return out
+
+
+def phase_zoo_speed(torch, held):
+    """ALS, WRMF ridge and WRMF eigh on the ML-1M-scale split: one warm-up
+    iteration, 3 timed (host clock between synchronizes), then one under
+    torch.profiler (device ms, idle share, the largest kernels); peak
+    memory over the timed ones (the item side's (solve_batch, L, D) rows
+    are the largest)."""
+    import dataclasses
+
+    from cdae_tpu_torch.models import ALS, WRMF
+    from cdae_tpu_torch.solver.solver import _params_finite
+
+    train = held["ml1m"][1][0]
+    by_item = train.by_item().padded()
+    out = dict(phase="zoo_speed", users=train.num_users,
+               items=train.num_items, interactions=len(train),
+               user_side_L=int(train.padded().max_len),
+               item_side_L=int(by_item.max_len))
+    ok = True
+    for route, key, cls, kw in (("als", "als", ALS, {}),
+                                ("wrmf_ridge", "wrmf", WRMF, {}),
+                                ("wrmf_eigh", "wrmf", WRMF,
+                                 dict(w_solver="eigh"))):
+        cfg = dataclasses.replace(held[key].model.cfg, **kw)
+        model = cls(cfg, device="cuda")
+        state = model.reset(train, seed=SEED)
+        model.train_one_iteration(state, SEED)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            model.train_one_iteration(state, SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        prof = _profile(torch, lambda: model.train_one_iteration(state, SEED))
+        finite = _params_finite(state.params)
+        out[route] = dict(w_solver=cfg.w_solver,
+                          solve_batch=cfg.solve_batch,
+                          ms_per_iteration=wall * 1e3 / 3,
+                          peak_mem_gb=peak, params_finite=finite,
+                          profiled_iteration=prof)
+        ok = ok and finite
+        del state
+    out["ok"] = ok
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2479,6 +2926,23 @@ def main() -> int:
         emit(dict(phase="mf_wall", seconds=time.perf_counter() - t_mf))
     else:
         failed.append("MF phases (no ML-1M run to build on)")
+    if "ml1m" in held:
+        t_zoo = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            run("train_als", lambda: phase_train_als(torch, tmp, held))
+            run("train_wrmf", lambda: phase_train_wrmf(torch, tmp, held))
+            reset_counts("cf_serving")
+            run("serve_itemcf", lambda: phase_serve_itemcf(torch, tmp, held))
+            run("serve_usercf", lambda: phase_serve_usercf(torch, tmp, held))
+            read_counts("cf_serving", launches, failed)
+        if all(key in held for key in ("als", "wrmf", "itemcf", "usercf")):
+            run("cf_checks", lambda: phase_cf_checks(torch, held, results))
+            run("zoo_speed", lambda: phase_zoo_speed(torch, held))
+        else:
+            failed.append("zoo checks (a run to build on failed)")
+        emit(dict(phase="zoo_wall", seconds=time.perf_counter() - t_zoo))
+    else:
+        failed.append("zoo phases (no ML-1M run to build on)")
     emit(dict(phase="wall", seconds=time.perf_counter() - t_start))
 
     table = []

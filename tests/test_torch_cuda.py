@@ -1210,3 +1210,126 @@ def test_mf_routes_do_not_fall_back(cuda, monkeypatch, route, entry):
     monkeypatch.setattr(cuda_lib, "_lib", _FailingLib(cuda_lib.lib(), entry))
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         model.train_one_iteration(state, 5)
+
+
+# ------------------------------------------- ALS/WRMF and ItemCF/UserCF ----
+
+def _cf_data():
+    from cdae_tpu_torch.data.synthetic import lowrank_interactions
+
+    return lowrank_interactions(400, 300, 15, seed=4).split_by_user(0.2,
+                                                                    seed=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ItemCF", "UserCF"])
+@pytest.mark.parametrize("sim_type", ["JACCARD", "COSINE"])
+def test_cf_scoring_on_b8_matches_plain_and_repeats(cuda, name, sim_type):
+    """The neighbour lists on the card equal the CPU's; the CF scores
+    through B8 (one plan and one reduce a batch) match B8's plain version
+    on the same device tensors to B8's tolerance and are the same bits on
+    a second call, as are the TOPN top-10 lists."""
+    from cdae_tpu_torch.evaluation import Evaluation
+    from cdae_tpu_torch.models import similarity as S
+    from cdae_tpu_torch.ops import scatter
+
+    train, test = _cf_data()
+    cfg = S.SimilarityConfig(sim_type=sim_type, topk=30, block_size=128)
+    gm, cm = getattr(S, name)(cfg, device="cuda"), getattr(S, name)(
+        cfg, device="cpu")
+    gs, cs = gm.reset(train), cm.reset(train)
+    assert torch.equal(gs.params["nbr_ids"].cpu(), cs.params["nbr_ids"])
+    torch.testing.assert_close(gs.params["nbr_sims"].cpu(),
+                               cs.params["nbr_sims"], rtol=1e-6, atol=0)
+    pb = gs.padded
+    uids = np.arange(0, train.num_users, 2)
+    launches = P.scatter_matmul.launches
+    a = gm.batch_scores(gs, uids, pb.items[uids], pb.mask[uids])
+    b = gm.batch_scores(gs, uids, pb.items[uids], pb.mask[uids])
+    assert P.scatter_matmul.launches == launches + 2
+    assert torch.equal(a, b)
+    real = scatter.scatter_add_rows
+
+    def plain(base, idx, vals, mode="auto", plan=None):
+        return base + P.scatter_matmul_plain(idx, vals, base.shape[0])
+
+    S.scatter_add_rows = plain
+    try:
+        want = gm.batch_scores(gs, uids, pb.items[uids], pb.mask[uids])
+    finally:
+        S.scatter_add_rows = real
+    err = (a - want).abs()
+    assert (err <= 1e-5 * want.abs() + 1e-6 * want.abs().max()).all()
+    ev = [Evaluation.create("TOPN").evaluate(gm, gs, test, train)
+          for _ in range(2)]
+    assert ev[0]["R@10"] == ev[1]["R@10"] and ev[0]["R@10"] > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,w_solver", [("ALS", "ridge"),
+                                           ("WRMF", "ridge"),
+                                           ("WRMF", "eigh")])
+def test_als_iteration_on_the_card_matches_cpu(cuda, name, w_solver):
+    """The two sweeps of one iteration on the card and on the CPU, each from
+    the same inputs (N(0, 0.3) factors; the item sweep from the CPU's new
+    user factors): 1e-4 relative per table on the rows with at least 2*D
+    observations, whose Grams have full rank (a thinner row's Gram is
+    singular up to lambda or WRMF's jitter, and f32 rounding sets its
+    null-space part on either device); a whole iteration on the card is
+    the same bits on a second run."""
+    from cdae_tpu_torch.models import als
+
+    train, _ = _cf_data()
+    D = 8
+    cfg = als.ALSConfig(num_dim=D, lambda_=0.01, scalar=40.0,
+                        solve_batch=128, w_solver=w_solver)
+    cls = getattr(als, name)
+    rng = np.random.default_rng(2)
+    p0 = torch.from_numpy((rng.standard_normal((train.num_users, D))
+                           * 0.3).astype(np.float32))
+    q0 = torch.from_numpy((rng.standard_normal((train.num_items, D))
+                           * 0.3).astype(np.float32))
+    aux = {dev: cls(cfg, device=dev).reset(train, seed=2).aux
+           for dev in ("cuda", "cpu")}
+    args = (cfg.lambda_, cfg.scalar, cls.weighted, w_solver)
+    p = {dev: als._sweep(p0.to(dev), q0.to(dev), aux[dev]["dev_user_side"],
+                         *args).cpu() for dev in aux}
+    q = {dev: als._sweep(q0.to(dev), p["cpu"].to(dev),
+                         aux[dev]["dev_item_side"], *args).cpu()
+         for dev in aux}
+    full_u = torch.from_numpy(np.bincount(train.users,
+                                          minlength=train.num_users) >= 2 * D)
+    full_i = torch.from_numpy(np.bincount(train.items,
+                                          minlength=train.num_items) >= 2 * D)
+    assert full_u.sum() > 50 and full_i.sum() > 50
+    assert _rel(p["cuda"][full_u], p["cpu"][full_u]) <= 1e-4
+    assert _rel(q["cuda"][full_i], q["cpu"][full_i]) <= 1e-4
+    runs = []
+    for _ in range(2):
+        model = cls(cfg, device="cuda")
+        state = model.reset(train, seed=2)
+        state.params = {"p": p0.to("cuda"), "q": q0.to("cuda")}
+        model.train_one_iteration(state)
+        runs.append(state.params)
+    for k in ("p", "q"):
+        assert torch.equal(runs[0][k], runs[1][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ItemCF", "UserCF"])
+def test_cf_scoring_does_not_fall_back(cuda, monkeypatch, name):
+    """A B8 launch that fails makes the CF scoring raise: it does not fall
+    back to index_add_."""
+    from cdae_tpu_torch.models import similarity as S
+    from cdae_tpu_torch.ops import cuda_lib
+
+    train, _ = _cf_data()
+    model = getattr(S, name)(S.SimilarityConfig(topk=10), device="cuda")
+    state = model.reset(train)
+    pb = state.padded
+    uids = np.arange(8)
+    for entry in ("cdae_scatter_reduce", "cdae_scatter_plan"):
+        monkeypatch.setattr(cuda_lib, "_lib",
+                            _FailingLib(cuda_lib.lib(), entry))
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            model.batch_scores(state, uids, pb.items[uids], pb.mask[uids])

@@ -436,11 +436,13 @@ def test_cli_trains_warp(movielens_path, tmp_path):
 # ------------------------------------------------------ not ported yet ----
 
 def test_unported_routes_raise(splits):
-    """What is still unported raises naming its ROADMAP entry: ALS, WRMF,
-    NegMF, LINEAR, FM, ItemCF and UserCF, and --sharded. WARP's slab, pool
-    and scan routes and the rest of the MF family train now (their own
-    tests: test_torch_warp_routes.py, test_torch_mf_zoo.py), as do B9
-    (gather_mode="mxu") and B8 (the pallas scatter modes) on WARP."""
+    """What is still unported raises naming its ROADMAP entry: NegMF,
+    LINEAR and FM, and --sharded. WARP's slab, pool and scan routes and the
+    rest of the MF family train now (their own tests:
+    test_torch_warp_routes.py, test_torch_mf_zoo.py), as do B9
+    (gather_mode="mxu") and B8 (the pallas scatter modes) on WARP, and
+    ALS, WRMF, ItemCF and UserCF build (test_torch_als.py,
+    test_torch_similarity.py)."""
     (_, _), (ttrain, _) = splits
 
     def train(**kw):
@@ -453,10 +455,14 @@ def test_unported_routes_raise(splits):
     train(gather_mode="mxu")
     train(scatter_mode="pallas")
     train(gather_mode="mxu", scatter_mode="pallas_bf16")
-    for name in ("ALS", "wrmf", "NegMF", "LINEAR", "FM", "ItemCF",
-                 "USERCF"):
+    for name in ("NegMF", "LINEAR", "fm"):
         with pytest.raises(NotImplementedError, match="A9"):
             tmodels.create_model(name, device="cpu")
+    assert set(tmodels.LATER_MODELS) == {"NEGMF", "LINEAR", "FM"}
+    for name in ("ALS", "wrmf", "ItemCF", "USERCF"):
+        assert type(tmodels.create_model(name, device="cpu")).__name__ == {
+            "ALS": "ALS", "WRMF": "WRMF", "ITEMCF": "ItemCF",
+            "USERCF": "UserCF"}[name.upper()]
     for name, cls in (("BPR", tmf.BPR), ("pmf", tmf.PMF), ("IMF", tmf.IMF)):
         assert isinstance(tmodels.create_model(name, device="cpu"), cls)
     from cdae_tpu_torch.models.fism import FISM, FISMPair
@@ -467,7 +473,7 @@ def test_unported_routes_raise(splits):
         tmodels.create_model("NOPE", device="cpu")
     assert isinstance(tmodels.create_model("warp", device="cpu"), tmf.WARP)
     with pytest.raises(SystemExit, match="later slice.*A9"):
-        tcli.run(["--task", "test", "--method", "ALS", "--device", "cpu"])
+        tcli.run(["--task", "test", "--method", "NEGMF", "--device", "cpu"])
     with pytest.raises(SystemExit, match="sharded.*later slice"):
         tcli.run(["--task", "test", "--method", "IMF", "--sharded", "true",
                   "--device", "cpu"])

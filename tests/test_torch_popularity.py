@@ -162,3 +162,29 @@ def test_train_task_trains_popularity_first(cache, monkeypatch):
     assert cli.run(["--task", "train", "--method", "NONE",
                     "--skip_popularity", "--cache_file", cache,
                     "--device", "cpu"]) == {}
+
+
+@pytest.mark.parametrize("method", ["POP", "POPULARITY", "Popularity",
+                                    "popularity"])
+def test_popularity_method_names(method, cache):
+    """--method takes POP and POPULARITY in any case, as cdae_tpu's CLI
+    does (the port once refused every name but POP), and trains it."""
+    args = cli.build_arg_parser().parse_args(
+        ["--method", method, "--device", "cpu", "--cache_file", cache,
+         "--skip_popularity", "--max_iters", "1"])
+    assert isinstance(cli.build_model(args), Popularity)
+    solver = cli.train(args)
+    assert isinstance(solver.model, Popularity)
+    assert 0.0 < solver.history[-1]["R@10"] <= 1.0
+
+
+def test_unknown_method_exits_as_cdae_tpu():
+    """A method cdae_tpu does not know exits with its message, not the
+    "not ported yet" one."""
+    from cdae_tpu import cli as jcli
+
+    for mod in (jcli, cli):
+        argv = ["--method", "NOPE"] + (["--device", "cpu"] if mod is cli
+                                       else [])
+        with pytest.raises(SystemExit, match="unknown --method NOPE"):
+            mod.build_model(mod.build_arg_parser().parse_args(argv))
