@@ -1,5 +1,4 @@
-"""CLI of the port (port of cdae_tpu/cli.py, the CDAE, MF-family, FISM,
-ALS/WRMF, ItemCF/UserCF and Popularity tasks).
+"""CLI of the port (port of cdae_tpu/cli.py: every --method it takes).
 
 The flag surface is cdae_tpu's, so command lines carry over, plus
 ``--device`` (default ``cuda``; ``--device cpu`` is the only way onto the
@@ -11,9 +10,10 @@ CPU -- a CUDA request without a GPU raises). Tasks:
               evaluate the Popularity baseline (one TOPN row; skipped with
               --skip_popularity), as cdae_tpu does; then, unless --method
               is NONE, train --method CDAE, MF (IMF), IMF, PMF, BPR, WARP,
-              FISM, FISMPAIR, ALS, WRMF, ITEMCF, USERCF or POP (or
-              POPULARITY) with Solver.train (SGDSolver with --learn_rate
-              for FISM), evaluating every --eval_iters with
+              FISM, FISMPAIR, ALS, WRMF, ITEMCF, USERCF, NEGMF, LINEAR, FM
+              or POP (or POPULARITY) with Solver.train (SGDSolver with
+              --learn_rate for FISM, FISMPAIR, LINEAR, FM and NEGMF, as
+              cdae_tpu), evaluating every --eval_iters with
               --eval (TOPN, RANKING, RMSE, MAE); --init_checkpoint resumes,
               --checkpoint / --checkpoint_every write checkpoints. CDAE
               trains in dense mode while the int8 (U, I) matrix fits
@@ -21,9 +21,10 @@ CPU -- a CUDA request without a GPU raises). Tasks:
   test     -- load split caches, restore --init_checkpoint (a cdae_tpu or
               cdae_tpu_torch checkpoint), evaluate any of those methods
 
-``sweep``, ``--sharded`` and the feature-group methods (NEGMF, LINEAR,
-FM) come with later slices of the port and exit with a message saying
-so; a method cdae_tpu does not know exits with ``unknown --method``.
+``sweep`` and ``--sharded`` come with later slices of the port and exit
+with a message saying so; a method cdae_tpu does not know exits with
+``unknown --method``. LINEAR and FM have no TOPN scores (cdae_tpu's have
+none either): train them with ``--eval RMSE`` or ``MAE``.
 
 Run: ``python -m cdae_tpu_torch.cli --task train --method CDAE ...``
 """
@@ -141,17 +142,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def build_model(args):
     """--method dispatch over the port's ``MODEL_REGISTRY``; the config
     comes from the flags by the model's config class, as in cdae_tpu."""
-    from cdae_tpu_torch.models import (LATER_MODELS, MODEL_REGISTRY,
-                                       ALSConfig, CDAEConfig, FISMConfig,
-                                       MFConfig, SimilarityConfig)
+    from cdae_tpu_torch.models import (MODEL_REGISTRY, ALSConfig, CDAEConfig,
+                                       FactorModelConfig, FISMConfig,
+                                       LinearModelConfig, MFConfig,
+                                       SimilarityConfig)
 
     method = args.method.upper()
     # the reference's MF is IMF; cdae_tpu takes POPULARITY for POP
     method = {"MF": "IMF", "POPULARITY": "POP"}.get(method, method)
-    if method in LATER_MODELS:
-        raise SystemExit(
-            f"--method {args.method} {_LATER} (ROADMAP "
-            f"{LATER_MODELS[method]}); ported: {', '.join(MODEL_REGISTRY)}")
     if method not in MODEL_REGISTRY:
         raise SystemExit(f"unknown --method {args.method}")
     if args.sharded:
@@ -186,6 +184,19 @@ def build_model(args):
             using_adagrad=args.adagrad, learn_rate=args.learn_rate,
             batch_size=max(args.batch_size // 8, 1),
         ), device=args.device)
+    if cfg_cls is LinearModelConfig:
+        return cls(LinearModelConfig(
+            lambda_=args.lambda_, loss=args.loss_type,
+            using_adagrad=args.adagrad, learn_rate=args.learn_rate,
+            batch_size=args.batch_size,
+        ), device=args.device)
+    if cfg_cls is FactorModelConfig:
+        kw = dict(lambda_=args.lambda_, loss=args.loss_type,
+                  num_dim=args.num_dim, using_adagrad=args.adagrad,
+                  learn_rate=args.learn_rate, batch_size=args.batch_size)
+        if method == "NEGMF":  # --dense_mode true: NegMF's slab step
+            kw.update(num_neg=args.num_neg, dense_mode=dense)
+        return cls(FactorModelConfig(**kw), device=args.device)
     return cls(CDAEConfig(
         lambda_=args.lambda_, learn_rate=args.learn_rate,
         loss=args.loss_type, num_dim=args.num_dim,
@@ -216,10 +227,11 @@ def train(args):
     """The train task: split ``--cache_file``, train and evaluate
     Popularity first unless ``--skip_popularity`` (cdae_tpu's order), then
     train ``--method`` with Solver.train (SGDSolver from --learn_rate for
-    FISM, as cdae_tpu). Returns the method's Solver (its ``history`` holds
-    every eval row, iteration 0 included), Popularity's for --method NONE,
-    or None when nothing trains (--method NONE --skip_popularity)."""
-    from cdae_tpu_torch.models import FISM, Popularity
+    FISM and the feature-group models, as cdae_tpu). Returns the method's
+    Solver (its ``history`` holds every eval row, iteration 0 included),
+    Popularity's for --method NONE, or None when nothing trains (--method
+    NONE --skip_popularity)."""
+    from cdae_tpu_torch.models import FISM, LinearModel, Popularity
     from cdae_tpu_torch.solver.solver import SGDSolver, Solver
 
     none = args.method.upper() == "NONE"
@@ -237,7 +249,8 @@ def train(args):
         pop_solver.train(train_data, test, ["TOPN"])
     if none:
         return pop_solver
-    solver_cls = SGDSolver if isinstance(model, FISM) else Solver
+    solver_cls = (SGDSolver if isinstance(model, (FISM, LinearModel))
+                  else Solver)
     solver = solver_cls(model, max_iteration=args.max_iters,
                         eval_iterations=args.eval_iters, seed=args.seed,
                         trace_dir=args.trace_dir or None,

@@ -214,6 +214,22 @@ class RecsysModel:
         """``x`` as a tensor on the model's device."""
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
+    def _dense_user_batches(self, state: ModelState):
+        """(k, B) uid and weight tensors of a user-slab route (B =
+        ``cfg.batch_size`` capped at U), built once per state: ``arange(k *
+        B) % U``, so the last batch wraps around to uid 0 with weight 0."""
+        if "dense_batches" not in state.aux:
+            U = state.num_users
+            B = min(self.cfg.batch_size, max(U, 1))
+            k = max(-(-U // B), 1)
+            uids = np.arange(k * B, dtype=np.int64) % max(U, 1)
+            weight = (np.arange(k * B) < U).astype(np.float32)
+            state.aux["dense_batches"] = (
+                self._tensor(uids.reshape(k, B)),
+                self._tensor(weight.reshape(k, B)),
+            )
+        return state.aux["dense_batches"]
+
     def reset(self, data: Interactions, seed: int = 0):
         raise NotImplementedError
 

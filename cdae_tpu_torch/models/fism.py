@@ -169,21 +169,6 @@ class FISM(RecsysModel):
         return state.aux["padded_rows"]
 
     # ------------------------------------------------------------- train ----
-    def _dense_user_batches(self, state: ModelState):
-        """(k, B) uid and weight tensors of the slab route; the last batch
-        wraps around to uid 0 with weight 0."""
-        if "dense_batches" not in state.aux:
-            U = state.num_users
-            B = min(self.cfg.batch_size, max(U, 1))
-            k = max(-(-U // B), 1)
-            uids = np.arange(k * B, dtype=np.int64) % max(U, 1)
-            weight = (np.arange(k * B) < U).astype(np.float32)
-            state.aux["dense_batches"] = (
-                self._tensor(uids.reshape(k, B)),
-                self._tensor(weight.reshape(k, B)),
-            )
-        return state.aux["dense_batches"]
-
     def _sparse_batches(self, state: ModelState):
         """The sparse route's user batches (uids, items, mask, lengths,
         weight) on the device. They do not change between epochs (no

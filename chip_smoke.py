@@ -145,10 +145,32 @@ Phases, each printed as one JSON line:
   zoo_speed -- ALS, WRMF ridge and WRMF eigh: ms an iteration (warm,
              synchronised), device ms and idle share under torch.profiler,
              peak memory
+  the feature-group models (counts from 0 before train_negmf, read after
+  train_fm: the linear_training path, B8's plan and reduce), trained by
+  SGDSolver through the CLI:
+    train_negmf -- --method NEGMF on the ML-1M-scale low-rank split, D=10,
+             batch 4096, num_neg 5, LOG, 10 epochs: R@10 rises
+    train_negmf_dense -- the same with --dense_mode true at 2x lr (2
+             slabs of (4096, 3706) an epoch): R@10 rises
+    train_linear / train_fm -- --method LINEAR / FM (D=10) --eval RMSE on
+             lowrank_rated data of the same dimensions, batch 1024, 10
+             epochs: the training objective falls; FM's test RMSE falls,
+             LINEAR's stays within 0.02 of the global mean's (the data
+             hold no bias signal)
+  linear_checks -- each of those routes: one epoch on the card against
+             one on the CPU from the same tables and draws, 1e-5 relative
+             per table; two 2-epoch runs the same bits; B8 at the NegMF
+             step's shape (49,152 ids x 11 columns into 9,746 rows)
+             against its plain version, beside index_add_ (its kernel-table
+             row)
+  linear_speed -- warm users/s (instances/s for LINEAR and FM), ms and
+             launches a step, B8 plans and reduces a step, device ms, idle
+             share and peak memory of each route
 Then the whole run's wall time, the kernel table (each kernel's launches
 summed over the main paths that run it, beside them by path; B8's plan has
-a row of its own; a kernel timed
-at several shapes lists them all under ``shapes``; bound_ms is the least
+a row of its own; a kernel timed at several shapes lists them all under
+``shapes``, B8's with its plan, reduce and index_add_ device times apart,
+and a shape of one main path with its launches on that path; bound_ms is the least
 time for the kernel's work at the card's published peaks: HBM bytes at
 3.35 TB/s against 32-bit operations at 67 T/s, or, for B3, B4, B5 and B6,
 which multiply on the tensor cores in 3xTF32, three TF32 products per f32
@@ -226,18 +248,20 @@ KERNELS = {
                              "cdae_tpu_torch/csrc/warp_select.cu",
                              "cdae_tpu/ops/pallas_kernels.py:1028",
                              ("warp_training", "warp_mxu")),
-    # WARP's default route, CDAE's sparse step and the ItemCF/UserCF
-    # scoring sum through B8 too
+    # WARP's default route, CDAE's sparse step, the ItemCF/UserCF scoring
+    # and the feature-group models' steps sum through B8 too
     "scatter_matmul": ("pallas_kernels", "cdae_tpu_torch/csrc/scatter_rows.cu",
                        "cdae_tpu/ops/pallas_kernels.py:1147",
                        ("fism_training", "warp_training", "warp_mxu",
-                        "sparse_training", "mf_training", "cf_serving")),
+                        "sparse_training", "mf_training", "cf_serving",
+                        "linear_training")),
     # B8's id sort (the TPU kernel contracts one-hot tiles and sorts
     # nothing): a wrapper and a count of its own
     "scatter_plan": ("pallas_kernels", "cdae_tpu_torch/csrc/scatter_rows.cu",
                      "cdae_tpu/ops/pallas_kernels.py:1147",
                      ("fism_training", "warp_training", "warp_mxu",
-                      "sparse_training", "mf_training", "cf_serving")),
+                      "sparse_training", "mf_training", "cf_serving",
+                      "linear_training")),
     "gather_rows_mxu": ("pallas_kernels", "cdae_tpu_torch/csrc/gather_rows.cu",
                         "cdae_tpu/ops/pallas_kernels.py:856",
                         ("warp_mxu", "mf_training")),
@@ -274,7 +298,7 @@ def read_counts(path: str, launches: dict, failed: list) -> None:
 
 # a row's shape keys and measurements, as the kernel table repeats them
 SHAPE_KEYS = ("B", "I", "D", "k", "nn", "shape", "case", "tables", "P", "N",
-              "C")
+              "C", "path")
 MEASURE_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
                 "library", "library_device_ms", "launch_floor_ms",
                 "one_table_calls_ms", "one_table_calls_device_ms",
@@ -288,10 +312,18 @@ def record(results, name, row) -> None:
     results.setdefault("_shapes", {}).setdefault(name, []).append(row)
 
 
-def shape_summary(row) -> dict:
+def shape_summary(row, by_path) -> dict:
+    """A shape's row in the kernel table; B8's device times split into its
+    span, plan, reduce and index_add_'s; a row of a main path
+    (``path``) carries the kernel's launches on that path."""
     out = {k: row[k] for k in SHAPE_KEYS + MEASURE_KEYS if k in row}
-    if isinstance(out.get("device_ms"), dict):  # B8's: its span's
-        out["device_ms"] = out["device_ms"].get("span")
+    if isinstance(out.get("device_ms"), dict):
+        dev = out["device_ms"]
+        out.update(device_ms=dev.get("span"), device_plan_ms=dev.get("plan"),
+                   device_reduce_ms=dev.get("reduce"),
+                   library_device_ms=dev.get("index_add"))
+    if "path" in row:
+        out["launches"] = by_path.get(row["path"])
     return out
 
 
@@ -1829,6 +1861,7 @@ def phase_train_pmf(torch, tmp, held):
     data = lowrank_rated(6040, 3706, 160, seed=SEED)
     data_s = time.perf_counter() - t0
     held["pmf_data"] = data.split_by_user(0.2, seed=SEED)
+    held["rated_data"] = data
     out = dict(phase="train_pmf", users=6040, items=3706, D=10,
                ratings=len(data), data_s=data_s)
     ok = True
@@ -2772,6 +2805,337 @@ def phase_zoo_speed(torch, held):
     return out
 
 
+# ------------------------------ LinearModel, FactorModel and NegMF ----
+
+FEATURE_TRAIN = ["--task", "train", "--num_dim", "10", "--max_iters", "10",
+                 "--eval_iters", "5", "--skip_popularity", "--seed",
+                 str(SEED), "--test_ratio", "0.2"]
+NEGMF_TRAIN = ["--method", "NEGMF", "--batch_size", "4096", "--num_neg", "5",
+               "--loss_type", "LOG"]
+# an epoch on the card against one on the CPU from the same tables and
+# draws (B8's fixed-order sums against index_add), per table
+FEATURE_REL_TOL = 1e-5
+FEATURE_KEYS = ("negmf", "negmf_dense", "linear", "fm")
+
+
+def _feature_cli(torch, tmp, data, name, argv):
+    """cli.train of FEATURE_TRAIN + ``argv`` on ``data`` (cached once as
+    ``name``); returns the Solver and the task's seconds."""
+    from cdae_tpu_torch import cli
+    from cdae_tpu_torch.data import io as data_io
+
+    cache = os.path.join(tmp, name + ".bin")
+    if not os.path.exists(cache):
+        data_io.save_interactions(data, cache)
+    t0 = time.perf_counter()
+    solver = cli.train(cli.build_arg_parser().parse_args(
+        FEATURE_TRAIN + ["--cache_file", cache] + argv))
+    torch.cuda.synchronize()
+    return solver, time.perf_counter() - t0
+
+
+def _feature_row(phase, solver, seconds, col, loss0=None):
+    """A training phase's row: the metric and the training objective
+    (data + penalty loss; ``loss0`` at epoch 0) at each eval; ok when the
+    metric rose (fell, for RMSE) from epoch 0, the params stayed finite
+    and SGDSolver trained the model."""
+    from cdae_tpu_torch.solver.solver import SGDSolver, _params_finite
+
+    hist = solver.history
+    finite = _params_finite(solver.state.params)
+    first, last = hist[0][col], hist[-1][col]
+    moved = last < first if col == "RMSE" else last > first
+    cfg = solver.model.cfg
+    row = dict(phase=phase, method=solver.model.name,
+                route="slab" if "dense_R" in solver.state.aux else "sparse",
+                solver=type(solver).__name__, batch=cfg.batch_size,
+                learn_rate=solver.model._lr, loss=cfg.loss,
+                D=getattr(cfg, "num_dim", None),
+                instances=len(solver.state.aux["instances"]),
+                feature_rows=solver.state.aux["instances"].total_dim,
+                cli_seconds=seconds, metric=col,
+                by_epoch={int(r["iter"]): r[col] for r in hist},
+                params_finite=finite,
+                ok=finite and moved and isinstance(solver, SGDSolver))
+    if loss0 is not None:  # NegMF reports no loss (as the reference)
+        row["train_loss"] = {int(r["iter"]): r["train_loss"] for r in hist}
+        row["train_loss"][0] = loss0
+    return row
+
+
+def phase_train_negmf(torch, tmp, held):
+    """CLI --method NEGMF on the ML-1M-scale low-rank data: D=10, batch
+    4096, num_neg 5, LOG, 10 epochs (189 steps an epoch; B8 sums each
+    step's 49,152 ids into the 9,746 feature rows). R@10 rises."""
+    solver, s = _feature_cli(torch, tmp, held["ml1m_data"], "ml1m_lowrank",
+                             NEGMF_TRAIN)
+    held["negmf"] = solver
+    row = _feature_row("train_negmf", solver, s, "R@10")
+    row["ok"] = row["ok"] and row["route"] == "sparse"
+    return row
+
+
+def phase_train_negmf_dense(torch, tmp, held):
+    """The same with --dense_mode true at 2x lr (the slab's equal-epoch
+    protocol, scripts/parity_zoo.py): 2 slabs of (4096, 3706) an epoch.
+    R@10 rises."""
+    solver, s = _feature_cli(torch, tmp, held["ml1m_data"], "ml1m_lowrank",
+                             NEGMF_TRAIN + ["--dense_mode", "true",
+                                            "--learn_rate", "0.2"])
+    held["negmf_dense"] = solver
+    row = _feature_row("train_negmf_dense", solver, s, "R@10")
+    row["ok"] = row["ok"] and row["route"] == "slab"
+    return row
+
+
+def _rated_data(held):
+    if "rated_data" not in held:
+        from cdae_tpu_torch.data.synthetic import lowrank_rated
+
+        held["rated_data"] = lowrank_rated(6040, 3706, 160, seed=SEED)
+        held["pmf_data"] = held["rated_data"].split_by_user(0.2, seed=SEED)
+    return held["rated_data"]
+
+
+# LINEAR's test RMSE at epoch 10 against epoch 0's (the global mean's)
+LINEAR_RMSE_SPREAD = 0.02
+
+
+def phase_train_linear(torch, tmp, held, method):
+    """CLI --method LINEAR or FM (D=10) --eval RMSE on lowrank_rated data
+    of ML-1M's dimensions, the CLI's batch 1024, 10 epochs: the training
+    objective falls from epoch 0 (a fresh reset with the run's seed) to
+    10, and FM's test RMSE falls. LinearModel's cannot: lowrank_rated
+    standardizes each user's ratings and draws them independently of
+    which items a user rated, so no user or item bias predicts a held-out
+    rating better than the global mean (cdae_tpu's LinearModel on the same
+    data and settings moves its RMSE the same way); its test RMSE stays
+    within LINEAR_RMSE_SPREAD of epoch 0's."""
+    solver, s = _feature_cli(torch, tmp, _rated_data(held), "ml1m_rated",
+                             ["--method", method, "--eval", "RMSE"])
+    held[method.lower()] = solver
+    fresh = type(solver.model)(solver.model.cfg, device="cuda")
+    loss0 = fresh.current_loss(fresh.reset(held["pmf_data"][0], seed=SEED))
+    row = _feature_row(f"train_{method.lower()}", solver, s, "RMSE",
+                       loss0=loss0)
+    fell = row["train_loss"][10] < loss0
+    if method == "LINEAR":
+        rmse = row["by_epoch"]
+        row["rmse_spread"] = LINEAR_RMSE_SPREAD
+        row["ok"] = (row["params_finite"] and fell
+                     and abs(rmse[10] - rmse[0]) <= LINEAR_RMSE_SPREAD)
+    else:
+        row["ok"] = row["ok"] and fell
+    return row
+
+
+def _feature_split(held, key):
+    return (held["pmf_data"] if key in ("linear", "fm")
+            else held["ml1m"][1])[0]
+
+
+def _feature_model(torch, held, key, device, params=None):
+    """A fresh model of ``held[key]``'s configuration on ``device``, reset
+    on its training split; with ``params``, those tables (moved to
+    ``device``)."""
+    model = held[key].model
+    m = type(model)(model.cfg, device=device)
+    state = m.reset(_feature_split(held, key), seed=SEED)
+    if params is not None:
+        state.params = {k: v.to(device) for k, v in params.items()}
+    return m, state
+
+
+def _feature_draws(torch, model, state, rng):
+    """numpy-made draws of one epoch, the same on every device: the
+    permutation, and NegMF's complement uniforms (sparse) or (B, I)
+    uniforms (slab)."""
+    import numpy as np
+
+    bs = model.cfg.batch_size
+    if "dense_R" in state.aux:
+        U = state.num_users
+        B = min(bs, U)
+        return dict(draws=[{"u01": torch.from_numpy(rng.random(
+            (B, state.num_items), dtype=np.float32))}
+            for _ in range(-(-U // B))])
+    perm = rng.permutation(len(state.aux["instances"]))
+    if model.name != "NegMF":
+        return dict(perm=perm)
+    users = state.aux["coo"][0]
+    sel = np.concatenate([perm, np.zeros(-len(perm) % bs, perm.dtype)])
+    free = np.maximum(state.num_items - state.padded.lengths[users[sel]], 1)
+    u = (rng.random((len(sel), model.cfg.num_neg)) * free[:, None]).astype(
+        np.int32)
+    return dict(perm=perm, draws=[{"u": torch.from_numpy(u[s:s + bs])}
+                                  for s in range(0, len(sel), bs)])
+
+
+def _negmf_kernel_row(torch, held, results):
+    """B8 at a NegMF sparse step's shape: the first step's B * (num_neg +
+    1) * 2 ids (positives and complement negatives, users and items at
+    offset U) into U + I rows, (P, 1 + D) values. Against its plain
+    version, two launches the same bits, its span and device time (plan
+    and reduce apart) beside index_add_'s, and the byte bound."""
+    import cdae_tpu_torch.ops.pallas_kernels as P
+    from cdae_tpu_torch.ops.sampling import sample_unrated
+
+    model, state = _feature_model(torch, held, "negmf", "cuda")
+    users, items, pad_items, lengths = model._device_data(state)
+    bs, nn, U = model.cfg.batch_size, model.cfg.num_neg, state.num_users
+    gen = torch.Generator().manual_seed(SEED)
+    sel = torch.randperm(users.shape[0], generator=gen)[:bs].cuda()
+    u = users[sel]
+    neg = sample_unrated(SEED, pad_items[u], lengths[u], state.num_items, nn)
+    all_i = torch.cat([items[sel][:, None],
+                       neg.clamp(max=state.num_items - 1)], dim=1)
+    idx = torch.stack([u[:, None].expand(bs, nn + 1).reshape(-1),
+                       all_i.reshape(-1) + U], dim=1).reshape(-1).contiguous()
+    N = state.params["w"].shape[0]
+    C = 1 + model.cfg.num_dim
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    vals = torch.randn((idx.shape[0], C), generator=g, device="cuda")
+    out = P.scatter_matmul(idx, vals, N)
+    again = P.scatter_matmul(idx, vals, N)
+    plain = P.scatter_matmul_plain(idx, vals, N)
+    torch.cuda.synchronize()
+    ok, err = _rows_ok(torch, out, plain)
+    plan = P.scatter_plan(idx, N)
+    row = dict(phase="kernel_negmf", kernel="scatter_matmul",
+               case="negmf_step", path="linear_training", P=idx.shape[0],
+               N=N, C=C,
+               rtol=ROWS_RTOL, atol_scale=ROWS_ATOL, max_abs_err=err,
+               bit_equal_relaunch=bool(torch.equal(out, again)),
+               ms=median_ms(lambda: P.scatter_matmul(idx, vals, N)),
+               plan_ms=median_ms(lambda: P.scatter_plan(idx, N)),
+               reduce_ms=median_ms(lambda: P.scatter_matmul(idx, vals, N,
+                                                            plan=plan)),
+               plain_ms=median_ms(lambda: P.scatter_matmul_plain(idx, vals,
+                                                                 N)),
+               library="index_add_",
+               library_ms=median_ms(lambda: torch.zeros(
+                   (N, C), device="cuda").index_add_(0, idx, vals)),
+               device_ms=dict(
+                   span=device_ms(lambda: P.scatter_matmul(idx, vals, N)),
+                   plan=device_ms(lambda: P.scatter_plan(idx, N)),
+                   reduce=device_ms(lambda: P.scatter_matmul(
+                       idx, vals, N, plan=plan)),
+                   index_add=device_ms(lambda: torch.zeros(
+                       (N, C), device="cuda").index_add_(0, idx, vals))),
+               # values, ids and the output once each; one add per value
+               **bound(4.0 * vals.numel() + 8.0 * idx.shape[0]
+                       + 4.0 * N * C, float(vals.numel())))
+    row["ok"] = ok and row["bit_equal_relaunch"]
+    record(results, "scatter_matmul", row)
+    return row
+
+
+def phase_linear_checks(torch, held, results):
+    """Each feature-group route (NegMF sparse and slab, LinearModel,
+    FactorModel): one epoch on the card against one on the CPU from the
+    same tables and numpy-made draws, every table within 1e-5 relative;
+    two 2-epoch runs on the card with the model's own draws, the same
+    bits. Then B8's kernel row at the NegMF step's shape."""
+    import numpy as np
+
+    out = dict(phase="linear_checks", tol=FEATURE_REL_TOL)
+    ok = True
+    for key in FEATURE_KEYS:
+        model, state = _feature_model(torch, held, key, "cuda")
+        start = {k: v.cpu() for k, v in state.params.items()}
+        cpu_model, cpu_state = _feature_model(torch, held, key, "cpu",
+                                              params=start)
+        epoch = {}
+        for dev, m, st in (("cuda", model, state),
+                           ("cpu", cpu_model, cpu_state)):
+            draws = _feature_draws(torch, m, st, np.random.default_rng(SEED))
+            t0 = time.perf_counter()
+            m.train_one_iteration(st, SEED, **draws)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            epoch[dev] = time.perf_counter() - t0
+        rel = _rel_diff(torch, {k: v.cpu() for k, v in state.params.items()},
+                        cpu_state.params)
+        runs = []
+        for _ in range(2):
+            m, st = _feature_model(torch, held, key, "cuda")
+            for _ in range(2):
+                m.train_one_iteration(st, SEED)
+            torch.cuda.synchronize()
+            runs.append(st.params)
+        equal = all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
+        out[key] = dict(rel_diff_vs_cpu=rel, runs_bit_equal=equal,
+                        epoch_seconds=epoch)
+        ok = ok and rel <= FEATURE_REL_TOL and equal
+    row = _negmf_kernel_row(torch, held, results)
+    emit(row)
+    out["b8_negmf"] = dict(max_abs_err=row["max_abs_err"], ok=row["ok"])
+    out["ok"] = ok and row["ok"]
+    return out
+
+
+def phase_linear_speed(torch, held):
+    """Warm training throughput of each feature-group route (the
+    train_speed_mf protocol): one warm-up epoch, 2 timed epochs (host clock
+    between synchronizes): users/s for NegMF, instances/s for LinearModel
+    and FactorModel, ms a step; then whole epochs of at least 16 steps
+    under torch.profiler: launches a step, device ms (B8's apart), idle
+    share; B8 plans and reduces a step (wrapper counts); peak memory."""
+    import cdae_tpu_torch.ops.pallas_kernels as P
+    from cdae_tpu_torch.solver.solver import _params_finite
+
+    out = dict(phase="linear_speed")
+    ok = True
+    for key in FEATURE_KEYS:
+        model, state = _feature_model(torch, held, key, "cuda")
+        model.train_one_iteration(state, SEED)  # warm-up
+        data = _feature_split(held, key)
+        steps = (state.aux["dense_batches"][0].shape[0]
+                 if "dense_R" in state.aux
+                 else -(-len(state.aux["instances"]) // model.cfg.batch_size))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            model.train_one_iteration(state, SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (P.scatter_plan.launches, P.scatter_matmul.launches)
+        reps = -(-16 // steps)
+
+        def epochs():
+            for _ in range(reps):
+                model.train_one_iteration(state, SEED)
+
+        prof = _profile(torch, epochs, groups={"b8": B8_KERNELS})
+        now = (P.scatter_plan.launches, P.scatter_matmul.launches)
+        per = [(b - a) / (steps * reps) for a, b in zip(counts, now)]
+        prof["epochs"] = reps
+        prof["launches_per_step"] = prof.pop("device_kernels") / (steps
+                                                                  * reps)
+        if prof["device_busy_ms"] is not None:
+            prof["device_ms_per_step"] = prof["device_busy_ms"] / (steps
+                                                                   * reps)
+        finite = _params_finite(state.params)
+        n = len(state.aux["instances"])
+        row = dict(users=data.num_users, instances=n,
+                   batch=model.cfg.batch_size, steps_per_epoch=steps,
+                   seconds_2_epochs=wall,
+                   ms_per_step=wall * 1e3 / (2 * steps),
+                   b8_plans_per_step=per[0], b8_reduces_per_step=per[1],
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   params_finite=finite, profiled_epoch=prof)
+        if key.startswith("negmf"):
+            row["users_per_s"] = data.num_users * 2 / wall
+        else:
+            row["instances_per_s"] = n * 2 / wall
+        out[key] = row
+        ok = ok and finite and per == [1.0, 1.0]
+        del state
+    out["ok"] = ok
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2943,6 +3307,27 @@ def main() -> int:
         emit(dict(phase="zoo_wall", seconds=time.perf_counter() - t_zoo))
     else:
         failed.append("zoo phases (no ML-1M run to build on)")
+    if "ml1m" in held:
+        t_lin = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts("linear_training")
+            run("train_negmf", lambda: phase_train_negmf(torch, tmp, held))
+            run("train_negmf_dense",
+                lambda: phase_train_negmf_dense(torch, tmp, held))
+            run("train_linear",
+                lambda: phase_train_linear(torch, tmp, held, "LINEAR"))
+            run("train_fm", lambda: phase_train_linear(torch, tmp, held,
+                                                       "FM"))
+            read_counts("linear_training", launches, failed)
+        if all(key in held for key in FEATURE_KEYS):
+            run("linear_checks",
+                lambda: phase_linear_checks(torch, held, results))
+            run("linear_speed", lambda: phase_linear_speed(torch, held))
+        else:
+            failed.append("feature-group checks (a run to build on failed)")
+        emit(dict(phase="linear_wall", seconds=time.perf_counter() - t_lin))
+    else:
+        failed.append("feature-group phases (no ML-1M run to build on)")
     emit(dict(phase="wall", seconds=time.perf_counter() - t_start))
 
     table = []
@@ -2963,7 +3348,8 @@ def main() -> int:
                           library_ms=r.get("library_ms")))
         shapes = results.get("_shapes", {}).get(name, [])
         if len(shapes) > 1:
-            table[-1]["shapes"] = [shape_summary(row) for row in shapes]
+            table[-1]["shapes"] = [shape_summary(row, by_path)
+                                   for row in shapes]
     emit({"kernels": table})
     try:
         smi = subprocess.run(

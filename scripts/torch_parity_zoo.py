@@ -7,7 +7,7 @@ driver; scripts/torch_parity_mf.py runs its MF cells.
 The zoo, on scripts/parity_zoo.py's protocol (``ZOO``): per seed, low-rank
 data of 1200 users x 600 items, degree 30 (rated 1-5 for PMF), split 0.2 by
 user, D=10, 20 iterations, num_neg 5, lr 0.1, batch 64; test recall@10
-(RMSE for PMF); gate 0.03 on the mean over the seeds.
+(RMSE for PMF, LINEAR and FM); gate 0.03 on the mean over the seeds.
 
   MF          IMF, SQUARE, beta 1, lambda 0.01 (the reference's MF)
   PMF         PMF on ratings, the instance epoch (dense_mode False)
@@ -20,6 +20,12 @@ user, D=10, 20 iterations, num_neg 5, lr 0.1, batch 64; test recall@10
   ITEMCF, USERCF, POP
               ``parity_sim``: Jaccard, top-50 neighbours; Popularity
   FISM        SQUARE
+  NEGMF       NegMF, LOG, no global mean (``parity_mf NegMF``)
+  NEGMF_DENSE NegMF's user slab at 2x lr, against the same oracle
+  LINEAR      LinearModel on ratings, SQUARE, lambda 0.01, RMSE
+              (``parity_fm LINEAR``, D=5 as the oracle takes it)
+  FM          FactorModel on ratings, D=5, batch 16, 60 iterations on
+              both sides (``parity_fm FM``)
 
 CDAE's grid, on scripts/parity_cdae.py's protocol (``CDAE``) and its
 ``GRID``: per seed, 2000 users x 800 items, degree 40, split 0.2, D=50, 30
@@ -68,6 +74,9 @@ ZOO = dict(users=1200, items=600, degree=30, iters=20, dim=10, num_neg=5,
 CDAE = dict(users=2000, items=800, degree=40, iters=30, dim=50, num_neg=5,
             lr=0.1, cratio=0.5)
 ALS_LAMBDA, ALS_SCALAR, SIM_TOPK = 0.01, 40.0, 50
+# parity_zoo.py's fm_cell: D=5, lambda 0.01; FM at batch <= 16 and 60
+# iterations
+FM_DIM, FM_LAMBDA, FM_BATCH, FM_ITERS = 5, 0.01, 16, 60
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +139,32 @@ def _fism(device):
                   device=device)
 
 
+def _negmf(lr_mult=1.0, dense=None):
+    def make(device):
+        from cdae_tpu_torch import models as M
+
+        return M.NegMF(M.FactorModelConfig(
+            learn_rate=ZOO["lr"] * lr_mult, num_dim=ZOO["dim"],
+            num_neg=ZOO["num_neg"], batch_size=ZOO["batch"], loss="LOG",
+            using_global_mean=False, dense_mode=dense), device=device)
+    return make
+
+
+def _linear(name):
+    def make(device):
+        from cdae_tpu_torch import models as M
+
+        kw = dict(loss="SQUARE", lambda_=FM_LAMBDA, learn_rate=ZOO["lr"],
+                  batch_size=ZOO["batch"], using_global_mean=True,
+                  using_adagrad=True)
+        if name == "LINEAR":
+            return M.LinearModel(M.LinearModelConfig(**kw), device=device)
+        kw["batch_size"] = min(ZOO["batch"], FM_BATCH)
+        return M.FactorModel(M.FactorModelConfig(num_dim=FM_DIM, **kw),
+                             device=device)
+    return make
+
+
 def _cdae(overrides):
     """parity_cdae.py's ``tpu_run`` configuration in the port."""
     def make(device):
@@ -144,9 +179,12 @@ def _cdae(overrides):
     return make
 
 
-def _zoo_argv(mode, method=None):
+def _zoo_argv(mode, method=None, iters=ZOO["iters"]):
     """The oracle's trailing arguments for a zoo mode."""
     head = [mode] + ([method] if method else [])
+    if mode == "parity_fm":
+        return lambda tr, te: head + [tr, te, iters, FM_DIM, ZOO["lr"],
+                                      FM_LAMBDA]
     if mode == "parity_sim":
         return lambda tr, te: head + [tr, te, SIM_TOPK]
     if mode == "parity_als":
@@ -188,6 +226,13 @@ CELLS = {
                    iters=1),
     "POP": Cell(_sim("POP"), _zoo_argv("parity_sim", "POP"), iters=1),
     "FISM": Cell(_fism, _zoo_argv("parity_mf", "FISM")),
+    "NEGMF": Cell(_negmf(), _zoo_argv("parity_mf", "NegMF")),
+    "NEGMF_DENSE": Cell(_negmf(2.0, dense=True),
+                        _zoo_argv("parity_mf", "NegMF")),
+    "LINEAR": Cell(_linear("LINEAR"), _zoo_argv("parity_fm", "LINEAR"),
+                   data="rated"),
+    "FM": Cell(_linear("FM"), _zoo_argv("parity_fm", "FM", FM_ITERS),
+               data="rated", iters=FM_ITERS),
     **{f"CDAE:{name}": Cell(_cdae(overrides), _grid_argv(flags, overrides),
                             data="cdae", tolerance=0.02, iters=CDAE["iters"])
        for name, flags, overrides in parity_cdae.GRID},
@@ -237,16 +282,17 @@ def run_cell(exe: str, name: str, split, seed: int, device: str) -> dict:
     t0 = time.perf_counter()
     model = cell.model(device)
     state = model.reset(train, seed=seed)
+    rmse = cell.metric == "RMSE"
+    ev = Evaluation.create("RMSE" if rmse else "TOPN")
+    start = ev.evaluate(model, state, test, train)[cell.metric]
     if cell.data == "cdae":
         state = model.train_epochs(state, cell.iters, seed)
     else:
         for _ in range(cell.iters):
             state = model.train_one_iteration(state, seed)
-    rmse = cell.metric == "RMSE"
-    got = Evaluation.create("RMSE" if rmse else "TOPN").evaluate(
-        model, state, test, train)
+    got = ev.evaluate(model, state, test, train)
     key = "rmse" if rmse else "recall_at_10"
-    out = dict(oracle=want[key], port=got[cell.metric],
+    out = dict(oracle=want[key], port_start=start, port=got[cell.metric],
                delta=got[cell.metric] - want[key],
                dense="dense_R" in state.aux,
                port_seconds=time.perf_counter() - t0)
@@ -301,8 +347,9 @@ def main(default_cells=REST_CELLS) -> int:
                            tolerance=cell.tolerance,
                            deltas=[r["delta"] for r in runs],
                            **{k: [r[k] for r in runs] for k in
-                              ("port", "oracle", "port_map", "oracle_map",
-                               "port_seconds") if k in runs[0]},
+                              ("port_start", "port", "oracle", "port_map",
+                               "oracle_map", "port_seconds")
+                              if k in runs[0]},
                            **{k: runs[0][k] for k in ("dense", "use_pallas")
                               if k in runs[0]},
                            parity=bool(passed))

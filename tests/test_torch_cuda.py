@@ -16,7 +16,10 @@ and the MF family's routes (IMF, PMF and BPR sparse and slab, WARP's slab,
 pool and scan: a step with the kernels against one with their plain
 versions, two runs bit for bit, the pool path's mask and CSR rows the same
 bits, B9 on IMF, and a failing kernel launch raising instead of falling
-back).
+back), ALS/WRMF and ItemCF/UserCF, and the feature-group models
+(LinearModel, FactorModel, NegMF sparse and slab: an epoch on the card
+against one on the CPU from the same injected draws, two runs bit for bit,
+no fall-back).
 Every test is marked ``cuda`` and skips when torch.cuda.is_available() is
 False (the kernels have no CPU mode).
 
@@ -1333,3 +1336,116 @@ def test_cf_scoring_does_not_fall_back(cuda, monkeypatch, name):
                             _FailingLib(cuda_lib.lib(), entry))
         with pytest.raises(RuntimeError, match="CUDA error 1"):
             model.batch_scores(state, uids, pb.items[uids], pb.mask[uids])
+
+
+# ---------------------------------- LinearModel, FactorModel and NegMF ----
+
+def _feature_model(name, device, **kw):
+    """The model on low-rank data of 60 users x 80 items (rated for
+    LinearModel and FactorModel), D = 8, its reset state on ``device``
+    with the CPU reset's tables."""
+    from cdae_tpu_torch.data.synthetic import (lowrank_interactions,
+                                               lowrank_rated)
+    from cdae_tpu_torch.models import linear as L
+
+    if name == "LinearModel":
+        cfg = L.LinearModelConfig(**{"batch_size": 128, **kw})
+    else:
+        cfg = L.FactorModelConfig(**{"num_dim": 8, "num_neg": 3,
+                                     "batch_size": 128, "loss": "LOG"
+                                     if name == "NegMF" else "SQUARE", **kw})
+    data = (lowrank_interactions if name == "NegMF" else lowrank_rated)(
+        60, 80, 10, seed=3)
+    model = getattr(L, name)(cfg, device=device)
+    state = model.reset(data, seed=1)
+    cpu = getattr(L, name)(cfg, device="cpu").reset(data, seed=1)
+    state.params = {k: v.to(device) for k, v in cpu.params.items()}
+    return model, state
+
+
+def _feature_draws(model, state, rng):
+    """numpy-made draws of one epoch, the same on every device: the
+    permutation, and NegMF's complement uniforms (sparse) or (B, I)
+    uniforms (slab)."""
+    gi = state.aux["instances"]
+    bs = model.cfg.batch_size
+    if "dense_R" in state.aux:
+        k = state.aux["dense_R"].shape[0]
+        slabs = -(-k // min(bs, k))
+        return dict(draws=[{"u01": torch.from_numpy(rng.random(
+            (min(bs, k), state.num_items)).astype(np.float32))}
+            for _ in range(slabs)])
+    perm = rng.permutation(len(gi))
+    if model.name != "NegMF":
+        return dict(perm=perm)
+    users = state.aux["coo"][0]
+    lengths = state.padded.lengths
+    sel = np.concatenate([perm, np.zeros(-len(perm) % bs, perm.dtype)])
+    free = np.maximum(state.num_items - lengths[users[sel]], 1)
+    u = (rng.random((len(sel), model.cfg.num_neg)) * free[:, None]).astype(
+        np.int32)
+    return dict(perm=perm, draws=[{"u": torch.from_numpy(u[s:s + bs])}
+                                  for s in range(0, len(sel), bs)])
+
+
+_FEATURE_ROUTES = {
+    "negmf_sparse": ("NegMF", {}),
+    "negmf_slab": ("NegMF", dict(dense_mode=True, batch_size=32)),
+    "linear": ("LinearModel", {}),
+    "fm": ("FactorModel", {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(_FEATURE_ROUTES))
+def test_feature_models_on_the_card_match_cpu(cuda, route):
+    """One epoch on the card (B8's sums) against one on the CPU (index_add)
+    from the same tables and the same injected draws: every table within
+    1e-5 relative. Each step launches one B8 plan and one B8 reduce."""
+    name, kw = _FEATURE_ROUTES[route]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model, state = _feature_model(name, dev, **kw)
+        draws = _feature_draws(model, state, np.random.default_rng(5))
+        counts = (P.scatter_plan.launches, P.scatter_matmul.launches)
+        model.train_one_iteration(state, 7, **draws)
+        now = (P.scatter_plan.launches, P.scatter_matmul.launches)
+        steps = len(draws.get("draws", [])) or -(
+            -len(state.aux["instances"]) // model.cfg.batch_size)
+        assert (now[0] - counts[0], now[1] - counts[1]) == (
+            (steps, steps) if dev == "cuda" else (0, 0))
+        out[dev] = state.params
+    for k, want in out["cpu"].items():
+        assert _rel(out["cuda"][k].cpu(), want) <= 1e-5, (route, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(_FEATURE_ROUTES))
+def test_feature_models_are_bit_reproducible(cuda, route):
+    """Two 2-epoch runs of each route with its own draws (the step seeds)
+    give the same bits on the card."""
+    name, kw = _FEATURE_ROUTES[route]
+    runs = []
+    for _ in range(2):
+        model, state = _feature_model(name, "cuda", **kw)
+        for _ in range(2):
+            model.train_one_iteration(state, 5)
+        torch.cuda.synchronize()
+        runs.append(state.params)
+    for k in runs[0]:
+        assert torch.equal(runs[0][k], runs[1][k]), (route, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["negmf_sparse", "negmf_slab", "fm"])
+def test_feature_models_do_not_fall_back(cuda, monkeypatch, route):
+    """A B8 launch that fails makes the step raise: it does not fall back to
+    index_add_."""
+    from cdae_tpu_torch.ops import cuda_lib
+
+    name, kw = _FEATURE_ROUTES[route]
+    model, state = _feature_model(name, "cuda", **kw)
+    monkeypatch.setattr(cuda_lib, "_lib",
+                        _FailingLib(cuda_lib.lib(), "cdae_scatter_reduce"))
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        model.train_one_iteration(state, 5)

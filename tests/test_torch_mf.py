@@ -436,13 +436,16 @@ def test_cli_trains_warp(movielens_path, tmp_path):
 # ------------------------------------------------------ not ported yet ----
 
 def test_unported_routes_raise(splits):
-    """What is still unported raises naming its ROADMAP entry: NegMF,
-    LINEAR and FM, and --sharded. WARP's slab, pool and scan routes and the
-    rest of the MF family train now (their own tests:
+    """What is still unported raises naming a later slice: --sharded. The
+    registry now holds cdae_tpu's 15 names: WARP's slab, pool and scan
+    routes and the rest of the MF family train (their own tests:
     test_torch_warp_routes.py, test_torch_mf_zoo.py), as do B9
-    (gather_mode="mxu") and B8 (the pallas scatter modes) on WARP, and
-    ALS, WRMF, ItemCF and UserCF build (test_torch_als.py,
-    test_torch_similarity.py)."""
+    (gather_mode="mxu") and B8 (the pallas scatter modes) on WARP; ALS,
+    WRMF, ItemCF, UserCF, NegMF, LINEAR and FM build (test_torch_als.py,
+    test_torch_similarity.py, test_torch_linear.py)."""
+    from cdae_tpu.models import MODEL_REGISTRY as JREGISTRY
+    from cdae_tpu_torch.models import linear as tlin
+
     (_, _), (ttrain, _) = splits
 
     def train(**kw):
@@ -455,10 +458,12 @@ def test_unported_routes_raise(splits):
     train(gather_mode="mxu")
     train(scatter_mode="pallas")
     train(gather_mode="mxu", scatter_mode="pallas_bf16")
-    for name in ("NegMF", "LINEAR", "fm"):
-        with pytest.raises(NotImplementedError, match="A9"):
-            tmodels.create_model(name, device="cpu")
-    assert set(tmodels.LATER_MODELS) == {"NEGMF", "LINEAR", "FM"}
+    for name, cls in (("NegMF", tlin.NegMF), ("LINEAR", tlin.LinearModel),
+                      ("fm", tlin.FactorModel)):
+        assert type(tmodels.create_model(name, device="cpu")) is cls
+    assert not hasattr(tmodels, "LATER_MODELS")
+    assert set(tmodels.MODEL_REGISTRY) == set(JREGISTRY)
+    assert len(tmodels.MODEL_REGISTRY) == 15
     for name in ("ALS", "wrmf", "ItemCF", "USERCF"):
         assert type(tmodels.create_model(name, device="cpu")).__name__ == {
             "ALS": "ALS", "WRMF": "WRMF", "ITEMCF": "ItemCF",
@@ -472,8 +477,10 @@ def test_unported_routes_raise(splits):
     with pytest.raises(ValueError, match="unknown"):
         tmodels.create_model("NOPE", device="cpu")
     assert isinstance(tmodels.create_model("warp", device="cpu"), tmf.WARP)
-    with pytest.raises(SystemExit, match="later slice.*A9"):
-        tcli.run(["--task", "test", "--method", "NEGMF", "--device", "cpu"])
+    assert type(tcli.build_model(tcli.build_arg_parser().parse_args(
+        ["--method", "NEGMF", "--device", "cpu"]))) is tlin.NegMF
+    with pytest.raises(SystemExit, match="unknown --method"):
+        tcli.run(["--task", "test", "--method", "NEGMFX", "--device", "cpu"])
     with pytest.raises(SystemExit, match="sharded.*later slice"):
         tcli.run(["--task", "test", "--method", "IMF", "--sharded", "true",
                   "--device", "cpu"])

@@ -50,12 +50,13 @@ def test_cuda_request_raises_without_gpu(monkeypatch, tmp_path):
 
 def test_later_tasks_and_methods_exit_with_message(movielens_path,
                                                    tmp_path):
-    """The sweep task, the unported methods (LINEAR and FM here; ALS,
-    WRMF, ITEMCF and USERCF build now) and --sharded exit naming a later
-    slice; --task train trains Popularity first (it once
-    refused to run without --skip_popularity): with --method NONE it
-    trains Popularity alone and returns its TOPN row, as cdae_tpu's CLI
-    does."""
+    """The sweep task and --sharded exit naming a later slice; every
+    method cdae_tpu takes builds (LINEAR, FM and NEGMF were the last to
+    come; ALS, WRMF, ITEMCF and USERCF before them) and one it does not
+    know exits with ``unknown --method``; --task train trains Popularity
+    first (it once refused to run without --skip_popularity): with
+    --method NONE it trains Popularity alone and returns its TOPN row, as
+    cdae_tpu's CLI does."""
     from cdae_tpu_torch import cli
 
     with pytest.raises(SystemExit, match="later slice"):
@@ -70,14 +71,15 @@ def test_later_tasks_and_methods_exit_with_message(movielens_path,
     assert type(solver.model).__name__ == "Popularity"
     assert [r["iter"] for r in solver.history] == [0.0, 1.0]
     assert 0.0 < solver.history[-1]["R@10"] <= 1.0
-    for method in ("LINEAR", "fm"):
-        with pytest.raises(SystemExit, match="later slice"):
-            cli.run(["--task", "test", "--method", method, "--device",
-                     "cpu"])
-    for method in ("ALS", "WRMF", "ITEMCF", "USERCF"):
+    for method, name in (("ALS", "ALS"), ("WRMF", "WRMF"),
+                         ("ITEMCF", "ItemCF"), ("USERCF", "UserCF"),
+                         ("LINEAR", "LinearModel"), ("fm", "FactorModel"),
+                         ("NegMF", "NegMF")):
         model = cli.build_model(cli.build_arg_parser().parse_args(
             ["--method", method, "--device", "cpu"]))
-        assert type(model).__name__.upper() == method
+        assert type(model).__name__ == name
+    with pytest.raises(SystemExit, match="unknown --method LINEARX"):
+        cli.run(["--task", "test", "--method", "LINEARX", "--device", "cpu"])
     with pytest.raises(SystemExit, match="later slice"):
         cli.run(["--task", "train", "--method", "BPR", "--sharded", "true",
                  "--cache_file", cache, "--device", "cpu",
