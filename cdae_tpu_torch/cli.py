@@ -20,11 +20,17 @@ CPU -- a CUDA request without a GPU raises). Tasks:
               (--dense_mode auto), else with the sparse step.
   test     -- load split caches, restore --init_checkpoint (a cdae_tpu or
               cdae_tpu_torch checkpoint), evaluate any of those methods
+  sweep    -- load --cache_file, split it (--test_ratio, --seed), run the
+              paper's CDAE grid (sweep.py; --max_iters epochs a point,
+              --batch_size, --sweep_limit points, 0 = all 192): one JSON
+              line a point
 
-``sweep`` and ``--sharded`` come with later slices of the port and exit
-with a message saying so; a method cdae_tpu does not know exits with
-``unknown --method``. LINEAR and FM have no TOPN scores (cdae_tpu's have
-none either): train them with ``--eval RMSE`` or ``MAE``.
+``prepare`` parses the two built-in formats with the multithreaded host
+loader (--num_thread threads, 0 = all cores). ``--sharded`` comes with a
+later slice of the port and exits with a message saying so; a method
+cdae_tpu does not know exits with ``unknown --method``. LINEAR and FM have
+no TOPN scores (cdae_tpu's have none either): train them with ``--eval
+RMSE`` or ``MAE``.
 
 Run: ``python -m cdae_tpu_torch.cli --task train --method CDAE ...``
 """
@@ -53,7 +59,8 @@ PARSERS = {
 }
 
 _LATER = ("is not ported to cdae_tpu_torch yet: it comes with a later "
-          "slice of the port (ROADMAP.md)")
+          "slice of the port, the sharded trainers (ROADMAP.md queue A "
+          "item 4)")
 
 
 def _booly(v: str) -> bool:
@@ -90,7 +97,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="accepted and unused, as in cdae_tpu (the decoder "
                         "is always linear)")
     p.add_argument("--num_thread", type=int, default=0,
-                   help="accepted and unused (the loader is pure Python)")
+                   help="host loader threads (0 = all cores)")
     p.add_argument("--cnum", type=int, default=1)
     p.add_argument("--cratio", type=float, default=0.0)
     p.add_argument("--loss_type", default="SQUARE")
@@ -111,7 +118,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_every", type=int, default=0)
     p.add_argument("--guard_nan", type=_booly, default=False)
     p.add_argument("--loss_sample", type=int, default=0)
-    p.add_argument("--sweep_limit", type=int, default=0)
+    p.add_argument("--sweep_limit", type=int, default=0,
+                   help="sweep task: run only the first N grid points")
     p.add_argument("--trace_dir", default="")
     p.add_argument("--dense_mode", default="auto",
                    help="int8 dense interaction matrix: auto|true|false")
@@ -271,12 +279,11 @@ def train(args):
 
 def run(argv: Optional[List[str]] = None) -> Dict[str, float]:
     """Run one task; returns the test metrics (test), the last eval row
-    (train), or {} (prepare/split)."""
+    (train), or {} (prepare/split/sweep)."""
     args = build_arg_parser().parse_args(argv)
-    if args.task == "sweep":
-        raise SystemExit(f"--task {args.task} {_LATER}")
     if args.task == "prepare":
-        data = Interactions.from_text(args.input_file, PARSERS[args.parser])
+        data = Interactions.from_text(args.input_file, PARSERS[args.parser],
+                                      num_threads=args.num_thread)
         logger.info("loaded %s", data)
         data_io.save_interactions(data, args.cache_file)
         logger.info("cached -> %s", args.cache_file)
@@ -288,6 +295,19 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, float]:
         logger.info("train %s / test %s", train_data, test)
         data_io.save_interactions(train_data, args.train_cache_file)
         data_io.save_interactions(test, args.test_cache_file)
+        return {}
+    if args.task == "sweep":
+        # the reference's qsub grid (apps/yelp/cdae.sh) as one sequential run
+        from cdae_tpu_torch.models.base import resolve_device
+        from cdae_tpu_torch.sweep import run_sweep
+
+        resolve_device(args.device)  # fails fast, before loading
+        data = data_io.load_interactions(args.cache_file)
+        logger.info("loaded %s", data)
+        train_data, test = data.split_by_user(args.test_ratio, seed=args.seed)
+        run_sweep(train_data, test, iters=args.max_iters,
+                  batch_size=args.batch_size, seed=args.seed,
+                  limit=args.sweep_limit, device=args.device)
         return {}
 
     if args.task == "train":

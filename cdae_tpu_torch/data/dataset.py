@@ -1,18 +1,20 @@
 """Sparse user-item interaction datasets (numpy, host side).
 
-The port's copy of cdae_tpu/data/dataset.py, restricted to what the
-ported models need: the COO ``Interactions`` container, its CSR (by user
-and by item), padded, item-side and dense views, the per-user split and
-the two built-in text parsers. Loading and CSR building are pure
-Python/numpy (no native helper library), and ``split_by_user`` draws
-from the same seeded numpy stream as cdae_tpu, so both packages produce
-the same split from the same data and seed.
+The port's copy of cdae_tpu/data/dataset.py: the COO ``Interactions``
+container, its CSR (by user and by item), padded, item-side and dense
+views, the per-user and global splits, shuffles, the two built-in text
+parsers and the schema printer. Text loading for the two built-in parsers
+and CSR builds above 100,000 rows go through the host runtime
+(cdae_tpu_torch/_native: multithreaded C++), with the Python and numpy
+paths as the fallback; both give the same arrays and vocabularies. The
+splits and shuffles draw from the same seeded numpy streams as cdae_tpu,
+so both packages produce the same result from the same data and seed.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -44,6 +46,12 @@ class CSR:
     indptr: np.ndarray  # (num_keys + 1,) int64
     indices: np.ndarray  # (nnz,) int32
     values: np.ndarray  # (nnz,) float32
+
+    def row(self, k: int) -> np.ndarray:
+        return self.indices[self.indptr[k] : self.indptr[k + 1]]
+
+    def row_values(self, k: int) -> np.ndarray:
+        return self.values[self.indptr[k] : self.indptr[k + 1]]
 
     def row_lengths(self) -> np.ndarray:
         return np.diff(self.indptr)
@@ -101,9 +109,39 @@ class Interactions:
         path: str,
         parser: LineParser = default_line_parser,
         skip_header: bool = False,
+        user_vocab: Optional[Vocab] = None,
+        item_vocab: Optional[Vocab] = None,
+        use_native: Optional[bool] = None,
+        num_threads: int = 0,
     ) -> "Interactions":
-        """Stream a text file through ``parser``, skipping blank lines."""
-        user_vocab, item_vocab = Vocab(), Vocab()
+        """Stream a text file through ``parser``, skipping blank lines.
+
+        For the two built-in parsers the multithreaded host loader
+        (``_native.parse_text``, ``num_threads`` threads, 0 = all cores)
+        parses the file when it is available; a custom ``parser``,
+        ``skip_header``, pre-seeded vocabs or ``use_native=False`` take
+        the Python line loop. Both give the same arrays and vocabularies.
+        """
+        if use_native is None:
+            use_native = not skip_header and user_vocab is None and (
+                item_vocab is None
+            )
+        native_fmt = {default_line_parser: "default",
+                      movielens_line_parser: "movielens"}.get(parser)
+        if use_native and native_fmt is not None:
+            from cdae_tpu_torch import _native
+
+            out = _native.parse_text(path, native_fmt, num_threads)
+            if out is not None:
+                users, items, ratings, u_tok, i_tok = out
+                return cls(
+                    users, items, ratings,
+                    num_users=len(u_tok), num_items=len(i_tok),
+                    user_vocab=Vocab.from_list(u_tok),
+                    item_vocab=Vocab.from_list(i_tok),
+                )
+        user_vocab = user_vocab if user_vocab is not None else Vocab()
+        item_vocab = item_vocab if item_vocab is not None else Vocab()
         users, items, ratings = [], [], []
         with open(path, "r") as f:
             for lineno, line in enumerate(f):
@@ -151,11 +189,48 @@ class Interactions:
     def __len__(self) -> int:
         return len(self.users)
 
+    @property
+    def size(self) -> int:
+        return len(self.users)
+
     def __repr__(self) -> str:
         return (
             f"Interactions(n={len(self)}, users={self.num_users}, "
             f"items={self.num_items})"
         )
+
+    def describe(self, head: int = 5) -> str:
+        """Schema + head pretty-printer (ref Data operator<<,
+        src/base/data-inl.hpp:82-105: dims, group sizes, head rows)."""
+        lengths = self.csr().row_lengths()
+        lo = int(lengths.min()) if len(self) else 0
+        hi = int(lengths.max()) if len(self) else 0
+        density = len(self) / max(self.num_users * self.num_items, 1)
+        lines = [
+            repr(self),
+            f"  density: {density:.6f}",
+            f"  per-user interactions: min={lo} max={hi} "
+            f"mean={len(self) / max(self.num_users, 1):.1f}",
+            "  head (user, item, rating):",
+        ]
+        for j in range(min(head, len(self))):
+            u, i, r = self.users[j], self.items[j], self.ratings[j]
+            uo = self.user_vocab.key(int(u)) if self.user_vocab else u
+            io_ = self.item_vocab.key(int(i)) if self.item_vocab else i
+            lines.append(f"    {uo} {io_} {r}")
+        return "\n".join(lines)
+
+    def with_dims(self, num_users: int, num_items: int) -> "Interactions":
+        """The same rows under other dimensions (e.g. a test split widened
+        to the training id space)."""
+        return Interactions(
+            self.users, self.items, self.ratings, num_users, num_items,
+            self.user_vocab, self.item_vocab,
+        )
+
+    def shuffled(self, rng: np.random.Generator) -> "Interactions":
+        """Row shuffle (ref Data::shuffle_data, src/base/data-inl.hpp:200)."""
+        return self._take(rng.permutation(len(self)))
 
     def csr(self) -> CSR:
         """Per-user sorted item lists."""
@@ -180,12 +255,35 @@ class Interactions:
         return Interactions(self.items, self.users, self.ratings,
                             self.num_items, self.num_users)
 
-    def padded(self) -> PaddedUserBatch:
+    def user_item_dict(self) -> Dict[int, Dict[int, float]]:
+        """uid -> {iid: rating} for every user (ref
+        get_feature_pair_label_hashtable(0, 1), src/base/data-inl.hpp:
+        413-429); where a pair repeats, the first occurrence wins, as the
+        reference's ``insert`` does."""
+        out: Dict[int, Dict[int, float]] = {
+            u: {} for u in range(self.num_users)
+        }
+        for u, i, r in zip(self.users.tolist(), self.items.tolist(),
+                           self.ratings.tolist()):
+            out[u].setdefault(i, r)
+        return out
+
+    def padded(self, max_len: Optional[int] = None) -> PaddedUserBatch:
         """Padded per-user item lists for ALL users (0..num_users-1); items
-        ascending in each row, padded with ``num_items``."""
+        ascending in each row, padded with ``num_items``. The width is the
+        longest row, or ``max_len`` (at least 1), which truncates longer
+        rows to their first (lowest) ``max_len`` items."""
         items, ratings, mask, lengths = rows_from_csr(
             self.csr(), np.arange(self.num_users), self.num_items
         )
+        if max_len is not None:
+            L = max(int(max_len or 1), 1)
+            extra = ((0, 0), (0, max(L - items.shape[1], 0)))
+            items = np.pad(items[:, :L], extra,
+                           constant_values=self.num_items)
+            ratings = np.pad(ratings[:, :L], extra)
+            lengths = np.minimum(lengths, L).astype(np.int32)
+            mask = np.arange(L)[None, :] < lengths[:, None]
         return PaddedUserBatch(
             uids=np.arange(self.num_users, dtype=np.int32),
             items=items,
@@ -208,6 +306,16 @@ class Interactions:
         _, first = np.unique(keys, return_index=True)
         m[self.users[first], self.items[first]] = self.ratings[first]
         return m
+
+    def random_split(
+        self, test_ratio: float, seed: int = 0
+    ) -> Tuple["Interactions", "Interactions"]:
+        """Global random split: a seeded permutation, the first
+        int((1 - test_ratio) * n) rows to train (ref Data::random_split,
+        src/base/data-inl.hpp:206-229)."""
+        perm = np.random.default_rng(seed).permutation(len(self))
+        num_train = int((1.0 - test_ratio) * len(self))
+        return self._take(perm[:num_train]), self._take(perm[num_train:])
 
     def split_by_user(
         self, test_ratio: float, seed: int = 0
@@ -282,6 +390,15 @@ def rows_from_csr(csr: CSR, users: np.ndarray, num_items: int):
 def _build_csr(
     keys: np.ndarray, vals: np.ndarray, ratings: np.ndarray, num_keys: int
 ) -> CSR:
+    """Rows by key, each sorted by (column, input order): the host
+    runtime's counting sort above 100,000 rows, else one lexsort (the
+    same arrays)."""
+    if len(keys) > 100_000:
+        from cdae_tpu_torch import _native
+
+        out = _native.build_csr(keys, vals, ratings, num_keys)
+        if out is not None:
+            return CSR(*out)
     # single lexsort: primary key = row, secondary = column (ascending)
     order = np.lexsort((vals, keys))
     indptr = np.zeros(num_keys + 1, dtype=np.int64)

@@ -193,6 +193,8 @@ class RecListEvaluation(Evaluation):
             out = {c: 0.0 for c in self.columns}
             out["TestTime"] = t.elapsed()
             return out
+        if hasattr(model, "pre_recommend"):
+            model.pre_recommend(state)  # ref evaluation.hpp:135 hook
         col_sum = torch.zeros(len(self.columns), dtype=torch.float64,
                               device=model.device)
         has_topk = hasattr(model, "batch_topk")

@@ -8,6 +8,7 @@ The protocol the solver and evaluators rely on:
   batch_scores(state, uids, rated_items, rated_mask) -> (B, num_items)
   batch_topk(state, uids, rated_items, rated_mask, k) -> (B, k) ids | None
   predict(state, users, items) -> per-pair predictions
+  recommend(state, uids, train_data, k) -> (B, k) top-k unrated ids
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from cdae_tpu_torch.data.dataset import Interactions, PaddedUserBatch
+from cdae_tpu_torch.data.dataset import (Interactions, PaddedUserBatch,
+                                          rows_from_csr)
+from cdae_tpu_torch.ops.topk import topk_unrated
 
 
 @dataclasses.dataclass
@@ -258,3 +261,21 @@ class RecsysModel:
     def predict(self, state, users, items):
         """Pointwise predictions for (user, item) pairs."""
         raise NotImplementedError
+
+    def recommend(self, state, uids, train_data: Interactions,
+                  k: int = 10) -> torch.Tensor:
+        """Top-k UNRATED item ids per user, the library's serving call
+        (ref recsys_model_base.hpp:77-104: a per-user heap scan of the
+        whole catalog; here one ``batch_scores`` over the users' padded
+        rated rows from ``train_data``, then ``topk_unrated``, which ties
+        like ``lax.top_k``: the lower id first). ``train_data`` gives the
+        rated sets to exclude and the input of models that score from the
+        rated rows (CDAE). Returns (B, k) int32 ids on the model's device;
+        id == num_items marks a padding slot (catalog smaller than k)."""
+        uids = np.asarray(uids, dtype=np.int32).reshape(-1)
+        rated, _, mask, _ = rows_from_csr(train_data.csr(), uids,
+                                          train_data.num_items)
+        rated = self._tensor(rated)
+        scores = self.batch_scores(state, uids, rated, self._tensor(mask))
+        ids, _ = topk_unrated(scores, rated, k)
+        return ids

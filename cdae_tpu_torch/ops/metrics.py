@@ -7,7 +7,8 @@ Per-user metric rows over padded lists, in float32 like the JAX version:
            @5/10 with a relevance threshold, MAP@5/10
 
 Rows of users with no validation items are zero; evaluators divide the
-column sums by the number of validation users.
+column sums by the number of validation users (``topn_mean``). ``rmse``
+and ``mae`` are the pointwise errors of a prediction vector.
 """
 
 from __future__ import annotations
@@ -55,6 +56,14 @@ def topn_user_metrics(
 
     rows = torch.stack([p1, p5, p10, r1, r5, r10, map5, map10], dim=1)
     return rows * (nval > 0).to(f32)[:, None]
+
+
+def topn_mean(rows: torch.Tensor, val_mask: torch.Tensor) -> torch.Tensor:
+    """(8,) mean of per-user rows over the validation users, those with at
+    least one validation item (ref evaluation.hpp:160-166)."""
+    num_val_users = torch.clamp(
+        val_mask.any(dim=1).to(torch.float32).sum(), min=1.0)
+    return rows.sum(dim=0) / num_val_users
 
 
 def ranking_user_metrics(
@@ -125,3 +134,14 @@ def ranking_user_metrics(
         dim=1,
     )
     return rows * (nval > 0).to(f32)[:, None]
+
+
+def rmse(preds: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Root-mean-square error (ref evaluation.hpp:46-61)."""
+    err = preds - labels
+    return torch.sqrt(torch.mean(err * err))
+
+
+def mae(preds: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean absolute error (ref evaluation.hpp:74-89)."""
+    return torch.mean(torch.abs(preds - labels))

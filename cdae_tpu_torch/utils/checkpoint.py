@@ -142,6 +142,11 @@ def load_checkpoint(path: str, state: ModelState,
     return state
 
 
+def checkpoint_extra(path: str) -> dict:
+    """The ``extra`` metadata a checkpoint was saved with."""
+    return checkpoint_manifest(path)["extra"]
+
+
 def checkpoint_manifest(path: str) -> dict:
     """The full manifest (step, dims, parameter names, fingerprint,
     extra)."""

@@ -166,6 +166,29 @@ Phases, each printed as one JSON line:
   linear_speed -- warm users/s (instances/s for LINEAR and FM), ms and
              launches a step, B8 plans and reduces a step, device ms, idle
              share and peak memory of each route
+  the single-card leftovers (counts from 0 before native_loader, read after
+  sweep: the leftovers path, B1, B2 and B3):
+    native_loader -- the host loader (g++ builds it here; it must be
+             available): the ML-1M-scale data as ``user item rating`` and
+             ``u::i::r::ts`` lines, each parsed natively and by the Python
+             loop (arrays and vocabularies equal, both walls); the ML-20M
+             shape (~20M lines) through the CLI --task prepare (the native
+             parse's wall and the task's; the cache equal to the parse),
+             then the Python loop over it (its wall, cut to a prefix, and
+             the cut printed, when the phase would pass 120 s)
+    recommend -- recommend(k=10) for all 6,040 users in batches of 1,024 on
+             train_ml1m's trained CDAE (B3 decodes) and on
+             train_imf_sparse's IMF: no rated id in any list; CDAE's ids
+             against the plain path's (use_pallas=False) and against the
+             lists TOPN ranks for the same users, IMF's against the CPU's
+             from the same params (equal where the reference's scores are
+             TOL apart); users/s
+    sweep -- --task sweep --sweep_limit 12 --max_iters 50 --batch_size 64
+             through the CLI on lowrank_interactions(2000, 800, 40), the
+             data of SWEEP_CDAE_r2.jsonl (B1 and one B2 launch a step, B3
+             in each point's TOPN): 12 lines, grid indices 0-11, configs
+             paper_grid()'s, R@10 and MAP@10 finite; each point's R@10
+             beside the record's, |mean delta| <= 0.03; seconds a point
 Then the whole run's wall time, the kernel table (each kernel's launches
 summed over the main paths that run it, beside them by path; B8's plan has
 a row of its own; a kernel timed at several shapes lists them all under
@@ -222,8 +245,10 @@ TF32_OPS_PER_S = 495e12  # dense TF32 on the tensor cores
 # name -> (module of the wrapper, source, TPU kernel it replaces, the main
 # paths that must launch it; the table's launch count sums them)
 KERNELS = {
+    # recommend and the sweep's TOPN decode through B3 too
     "decode_scores": ("pallas_kernels", "cdae_tpu_torch/csrc/decode_scores.cu",
-                      "cdae_tpu/ops/pallas_kernels.py:53", ("serving",)),
+                      "cdae_tpu/ops/pallas_kernels.py:53",
+                      ("serving", "leftovers")),
     "fused_topk_scores": ("pallas_kernels",
                           "cdae_tpu_torch/csrc/fused_topk.cu",
                           "cdae_tpu/ops/pallas_kernels.py:557",
@@ -234,13 +259,14 @@ KERNELS = {
                               ("serving",)),
     "hw_uniform": ("pallas_kernels", "cdae_tpu_torch/csrc/hw_uniform.cu",
                    "cdae_tpu/ops/pallas_kernels.py:178",
-                   ("training", "sparse_training", "mf_training")),
+                   ("training", "sparse_training", "mf_training",
+                    "leftovers")),
     "adagrad_update": ("pallas_kernels",
                        "cdae_tpu_torch/csrc/adagrad_update.cu",
                        "cdae_tpu/ops/pallas_kernels.py:108",
                        ("training", "fused_training", "warp_training",
                         "fism_training", "warp_mxu", "sparse_training",
-                        "mf_training")),
+                        "mf_training", "leftovers")),
     "cdae_dense_step_fused": ("cdae_fused", "cdae_tpu_torch/csrc/cdae_fused.cu",
                               "cdae_tpu/ops/cdae_fused.py:249",
                               ("fused_training",)),
@@ -405,8 +431,9 @@ def phase_kernels(torch, P, results):
     def normal(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
 
-    # B3 decode_scores at the ML-1M (D=50) and config-4-width (D=200) shapes
-    for B, I, D in ((1024, 3706, 50), (1024, 20000, 200)):
+    # B3 decode_scores at the ML-1M (D=50; recommend's too) and
+    # config-4-width (D=200) shapes, and the sweep's TOPN batch
+    for B, I, D in ((1024, 3706, 50), (1024, 20000, 200), (1024, 800, 50)):
         z = torch.rand(B, D, generator=g, device=dev)
         W, bp = normal(I, D, scale=0.1), normal(I, scale=0.1)
         out = P.decode_scores(z, W, bp)
@@ -415,6 +442,7 @@ def phase_kernels(torch, P, results):
         err = (out - ref).abs().max().item()
         row = dict(phase="kernel", kernel="decode_scores", B=B, I=I, D=D,
                    max_abs_err=err, tol=TOL,
+                   **(dict(path="leftovers") if I == 800 else {}),
                    ms=median_ms(lambda: P.decode_scores(z, W, bp)),
                    plain_ms=median_ms(lambda: P.decode_scores_plain(z, W, bp)),
                    library_ms=median_ms(lambda: torch.addmm(bp, z, W.t())),
@@ -503,6 +531,8 @@ ADAGRAD_SETS = (
     ("fism_ml1m", ((6040,), (3706, 10), (3706,), (3706, 10)), 0.0),
     # PMF's and IMF's sparse steps: uv, ub, iv, ib
     ("mf_ml1m", ((6040, 10), (6040,), (3706, 10), (3706,)), 1.0),
+    # an asymmetric sweep point's dense step (800 items, D=50): W, b', V, b
+    ("cdae_sweep", ((800, 50), (800,), (800, 50), (50,)), 1.0),
 )
 
 
@@ -578,6 +608,8 @@ def phase_adagrad_tables(torch, P, g, results) -> bool:
 
         row = dict(phase="kernel", kernel="adagrad_update", case=name,
                    tables=[list(s) for s in shapes], elements=n,
+                   **(dict(path="leftovers") if name == "cdae_sweep"
+                      else {}),
                    beta=beta, gates=equal,
                    max_abs_err=max(v["max_abs_err"] for v in equal.values()),
                    # spans over 21 calls: the host's share of a small
@@ -611,14 +643,16 @@ def phase_train_kernels(torch, results):
     g = torch.Generator(device=dev).manual_seed(SEED)
     bad = []
 
-    # B1 hw_uniform: bit-equal to the plain int64 version
-    for shape in ((1024, 3706), (1024, 20000), (6040, 3706)):
+    # B1 hw_uniform: bit-equal to the plain int64 version; the last shape
+    # is a sweep step's (batch 64, 800 items)
+    for shape in ((1024, 3706), (1024, 20000), (6040, 3706), (64, 800)):
         out = P.hw_uniform(SEED, shape, 1, device=dev)
         ref = P.hw_uniform_plain(SEED, shape, 1, device=dev)
         torch.cuda.synchronize()
         equal = bool(torch.equal(out, ref))
         row = dict(phase="kernel", kernel="hw_uniform", shape=list(shape),
                    bit_equal=equal,
+                   **(dict(path="leftovers") if shape == (64, 800) else {}),
                    max_abs_err=(out - ref).abs().max().item(),
                    mean=out.mean().item(), var=out.var().item(),
                    ms=median_ms(lambda: P.hw_uniform(SEED, shape, 1,
@@ -3136,6 +3170,322 @@ def phase_linear_speed(torch, held):
     return out
 
 
+LOADER_BUDGET_S = 120.0  # native_loader's wall; the Python parse of the
+# ML-20M file is cut to a prefix that keeps the phase inside it
+ML20M = (138_493, 26_744, 144)  # synthetic_interactions' ML-20M shape
+
+
+def _write_lines(path, data, fmt) -> int:
+    """``data`` as text lines: "triples" (``user item rating``) or
+    "movielens" (``u::i::r::0``); returns the file's bytes."""
+    chunk = 1 << 20
+    with open(path, "w") as f:
+        for s in range(0, len(data), chunk):
+            rows = zip(data.users[s:s + chunk].tolist(),
+                       data.items[s:s + chunk].tolist(),
+                       data.ratings[s:s + chunk].tolist())
+            if fmt == "movielens":
+                f.write("".join([f"{u}::{i}::{r:g}::0\n" for u, i, r in rows]))
+            else:
+                f.write("".join([f"{u} {i} {r:g}\n" for u, i, r in rows]))
+    return os.path.getsize(path)
+
+
+def _same_parse(a, b, n=None) -> bool:
+    """Two parses hold the same arrays and vocabularies (the first ``n``
+    rows of ``a`` against all of ``b`` when ``n`` is given; ids in
+    first-seen order, so a prefix's vocabularies are prefixes)."""
+    import numpy as np
+
+    n = len(a) if n is None else n
+    return (len(b) == n
+            and all(np.array_equal(getattr(a, f)[:n], getattr(b, f))
+                    for f in ("users", "items", "ratings"))
+            and a.user_vocab.to_list()[:b.num_users] == b.user_vocab.to_list()
+            and a.item_vocab.to_list()[:b.num_items] == b.item_vocab.to_list())
+
+
+def phase_native_loader(torch, tmp, held):
+    """The host loader (cdae_tpu_torch/_native, g++ on this host): the
+    ML-1M-scale low-rank data as ``user item rating`` and ``u::i::r::ts``
+    lines, each parsed natively and by the Python loop (the same arrays
+    and vocabularies); then the ML-20M shape through --task prepare (the
+    native parse's wall and the task's), and the Python loop over the same
+    file (its wall; cut to a prefix when the phase would pass
+    LOADER_BUDGET_S, the cut printed; the prefix's arrays equal)."""
+    from cdae_tpu_torch import _native, cli
+    from cdae_tpu_torch.data import io as data_io
+    from cdae_tpu_torch.data.dataset import (Interactions,
+                                             default_line_parser,
+                                             movielens_line_parser)
+    from cdae_tpu_torch.data.synthetic import synthetic_interactions
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    native_ok = _native.available()
+    build_s = time.perf_counter() - t0
+    parsers = {"triples": default_line_parser,
+               "movielens": movielens_line_parser}
+    ml1m = {}
+    for fmt, parser in parsers.items():
+        path = os.path.join(tmp, f"ml1m.{fmt}.txt")
+        nbytes = _write_lines(path, held["ml1m_data"], fmt)
+        walls, parsed = {}, {}
+        for native in (True, False):
+            t0 = time.perf_counter()
+            parsed[native] = Interactions.from_text(path, parser,
+                                                    use_native=native)
+            walls["native_s" if native else "python_s"] = (
+                time.perf_counter() - t0)
+        ml1m[fmt] = dict(lines=len(parsed[True]), bytes=nbytes, **walls,
+                         speedup=walls["python_s"] / walls["native_s"],
+                         equal=_same_parse(parsed[True], parsed[False]))
+    t0 = time.perf_counter()
+    data = synthetic_interactions(*ML20M, seed=SEED)
+    path = os.path.join(tmp, "ml20m.movielens.txt")
+    nbytes = _write_lines(path, data, "movielens")
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native = Interactions.from_text(path, movielens_line_parser,
+                                    use_native=True)
+    native_s = time.perf_counter() - t0
+    cache = os.path.join(tmp, "ml20m.bin")
+    t0 = time.perf_counter()
+    cli.run(["--task", "prepare", "--parser", "movielens", "--input_file",
+             path, "--cache_file", cache])
+    prepare_s = time.perf_counter() - t0
+    cached = data_io.load_interactions(cache)
+    # the Python loop at the ML-1M movielens rate: cut to the lines that
+    # keep the phase inside its budget
+    rate = ml1m["movielens"]["lines"] / ml1m["movielens"]["python_s"]
+    left = LOADER_BUDGET_S - (time.perf_counter() - t_phase) - 5.0
+    n_py = len(native) if left * rate >= len(native) else max(
+        int(left * rate), 100_000)
+    py_path = path
+    if n_py < len(native):
+        py_path = os.path.join(tmp, "ml20m.prefix.txt")
+        with open(path) as src, open(py_path, "w") as dst:
+            for _ in range(n_py):
+                dst.write(src.readline())
+    t0 = time.perf_counter()
+    python = Interactions.from_text(py_path, movielens_line_parser,
+                                    use_native=False)
+    python_s = time.perf_counter() - t0
+    ml20m = dict(users=data.num_users, items=data.num_items,
+                 lines=len(native), bytes=nbytes, write_s=write_s,
+                 native_parse_s=native_s, prepare_task_s=prepare_s,
+                 python_lines=n_py, python_cut=n_py < len(native),
+                 python_s=python_s,
+                 python_lines_per_s=n_py / python_s,
+                 native_lines_per_s=len(native) / native_s,
+                 cache_equal=_same_parse(native, cached),
+                 python_prefix_equal=_same_parse(native, python, n_py))
+    wall = time.perf_counter() - t_phase
+    return dict(phase="native_loader", native_available=native_ok,
+                library_build_s=build_s,
+                threads=os.cpu_count(), ml1m=ml1m, ml20m=ml20m,
+                seconds=wall, budget_s=LOADER_BUDGET_S,
+                ok=native_ok and all(v["equal"] for v in ml1m.values())
+                and ml20m["cache_equal"] and ml20m["python_prefix_equal"]
+                and len(native) == len(data))
+
+
+REC_BATCH = 1024  # users a recommend call
+
+
+def _recommend_all(torch, model, state, train, k=10):
+    """recommend(k) for every user in batches of REC_BATCH: (U, k) ids and
+    the warm pass's wall (after a first pass)."""
+    import numpy as np
+
+    U = train.num_users
+    out = None
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = torch.cat([model.recommend(state, np.arange(
+            s, min(s + REC_BATCH, U), dtype=np.int32), train, k=k)
+            for s in range(0, U, REC_BATCH)])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, walls
+
+
+def _rated_rows(torch, train, device):
+    from cdae_tpu_torch.data.dataset import rows_from_csr
+    import numpy as np
+
+    uids = np.arange(train.num_users, dtype=np.int32)
+    rated, _, mask, _ = rows_from_csr(train.csr(), uids, train.num_items)
+    return (uids, torch.as_tensor(rated, device=device),
+            torch.as_tensor(mask, device=device))
+
+
+def _plain_top(torch, model, state, uids, rated, mask, k=10):
+    """(ids, vals) of the top k+1 from ``model``'s scores, batch by batch
+    (the plain reference of a recommend run)."""
+    from cdae_tpu_torch.ops.topk import topk_unrated
+
+    ids, vals = [], []
+    for s in range(0, len(uids), REC_BATCH):
+        sc = model.batch_scores(state, uids[s:s + REC_BATCH],
+                                rated[s:s + REC_BATCH], mask[s:s + REC_BATCH])
+        i, v = topk_unrated(sc, rated[s:s + REC_BATCH], k + 1)
+        ids.append(i)
+        vals.append(v)
+    return torch.cat(ids), torch.cat(vals)
+
+
+def _list_checks(torch, ids, rated, plain_ids, plain_vals, k=10):
+    """No rated id in any list; the id sets equal the plain ones on every
+    row whose plain gap between the k-th and (k+1)-th score exceeds TOL;
+    the ordered lists equal on every row whose top k+1 are TOL apart."""
+    ids = ids.to(plain_ids.device).long()
+    rated = rated.to(plain_ids.device).long()
+    no_rated = not bool((ids[:, :, None] == rated[:, None, :]).any())
+    gap = plain_vals[:, k - 1] - plain_vals[:, k]
+    sure = gap > TOL
+    same_set = (torch.sort(ids, 1).values
+                == torch.sort(plain_ids[:, :k].long(), 1).values).all(1)
+    apart = ((plain_vals[:, :k] - plain_vals[:, 1:k + 1]) > TOL).all(1)
+    same_list = (ids == plain_ids[:, :k].long()).all(1)
+    return dict(no_rated_ids=no_rated, rows=len(ids),
+                rows_checked=int(sure.sum()),
+                rows_with_other_ids=int((sure & ~same_set).sum()),
+                rows_ordered_checked=int(apart.sum()),
+                rows_other_order=int((apart & ~same_list).sum()),
+                rows_exactly_equal=int(same_list.sum()))
+
+
+def phase_recommend(torch, held):
+    """recommend(k=10) for all 6,040 users in batches of 1,024 on
+    train_ml1m's trained CDAE (D=50; B3 decodes) and on train_imf_sparse's
+    IMF: no rated item in any list; CDAE's ids against the plain path
+    (use_pallas=False) on the same state and against the lists TOPN ranks
+    for the same users; IMF's against the CPU's from the same params;
+    users/s of the warm pass."""
+    import dataclasses
+
+    import numpy as np
+
+    from cdae_tpu_torch.evaluation import RecListEvaluation
+    from cdae_tpu_torch.models.cdae import CDAE
+    from cdae_tpu_torch.models.mf import IMF
+    from cdae_tpu_torch.ops.topk import topk_unrated
+
+    out = {}
+    solver, (train, test) = held["ml1m"]
+    model, state = solver.model, solver.state
+    uids, rated, mask = _rated_rows(torch, train, "cuda")
+    ids, walls = _recommend_all(torch, model, state, train)
+    plain = CDAE(dataclasses.replace(model.cfg, use_pallas=False),
+                 device="cuda")
+    plain_ids, plain_vals = _plain_top(torch, plain, state, uids, rated,
+                                       mask)
+    cdae = _list_checks(torch, ids, rated, plain_ids, plain_vals)
+    # the lists TOPN ranks: the evaluator's batch_scores, top-10 unrated
+    topn = {}
+    orig = model.batch_scores
+
+    def spy(st, u, ri, rm):
+        sc = orig(st, u, ri, rm)
+        top, _ = topk_unrated(sc, ri, 10)
+        for uid, row in zip(np.asarray(u).tolist(), top):
+            topn.setdefault(uid, row)
+        return sc
+
+    model.batch_scores = spy
+    try:
+        RecListEvaluation("TOPN").evaluate(model, state, test, train)
+    finally:
+        del model.batch_scores
+    users = torch.as_tensor(sorted(topn), device="cuda", dtype=torch.long)
+    topn_ids = torch.stack([topn[u] for u in sorted(topn)])
+    vs_topn = _list_checks(torch, topn_ids, rated[users], ids[users],
+                           plain_vals[users])
+    cdae.update(topn_users=len(users), vs_topn=vs_topn,
+                cold_s=walls[0], warm_s=walls[1],
+                users_per_s=len(uids) / walls[1])
+    out["cdae"] = cdae
+
+    solver = held["imf_sparse"]
+    train_imf = held["ml1m"][1][0]
+    model, state = solver.model, solver.state
+    ids, walls = _recommend_all(torch, model, state, train_imf)
+    cpu = IMF(model.cfg, device="cpu")
+    cpu_state = cpu.reset(train_imf, seed=SEED)
+    cpu_state.params = {k: v.cpu() for k, v in state.params.items()}
+    cu, crated, cmask = _rated_rows(torch, train_imf, "cpu")
+    cpu_rec = cpu.recommend(cpu_state, cu, train_imf, k=10)
+    cpu_ids, cpu_vals = _plain_top(torch, cpu, cpu_state, cu, crated, cmask)
+    imf = _list_checks(torch, ids, crated, cpu_ids, cpu_vals)
+    imf.update(equal_to_cpu_recommend=int(
+        (ids.cpu() == cpu_rec).all(1).sum()), cold_s=walls[0],
+        warm_s=walls[1], users_per_s=len(cu) / walls[1])
+    out["imf"] = imf
+    ok = all(v["no_rated_ids"] and not v["rows_with_other_ids"]
+             and not v["rows_other_order"] for v in (cdae, imf, vs_topn))
+    ok = ok and cdae["rows_checked"] > 0.9 * len(uids)
+    return dict(phase="recommend", users=len(uids), k=10, batch=REC_BATCH,
+                **out, ok=ok)
+
+
+SWEEP_POINTS = 12
+SWEEP_GATE = 0.03  # |mean R@10 delta| over the points against the record
+SWEEP_DATA = (2000, 800, 40)  # the record's lowrank_interactions
+
+
+def phase_sweep(torch, tmp, repo):
+    """--task sweep --sweep_limit 12 --max_iters 50 --batch_size 64 through
+    the CLI on lowrank_interactions(2000, 800, 40), the data of
+    SWEEP_CDAE_r2.jsonl: 12 JSON lines, grid indices 0-11, each point's
+    configuration paper_grid()'s, R@10 and MAP@10 finite; each point's
+    R@10 beside the record's and |mean delta| <= SWEEP_GATE (single points
+    not gated); seconds a point."""
+    import contextlib
+    import io
+
+    from cdae_tpu_torch import cli
+    from cdae_tpu_torch.data import io as data_io
+    from cdae_tpu_torch.data.synthetic import lowrank_interactions
+    from cdae_tpu_torch.sweep import paper_grid
+
+    cache = os.path.join(tmp, "sweep.bin")
+    data_io.save_interactions(
+        lowrank_interactions(*SWEEP_DATA, seed=SEED), cache)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.run(["--task", "sweep", "--cache_file", cache, "--sweep_limit",
+                 str(SWEEP_POINTS), "--max_iters", "50", "--batch_size",
+                 "64", "--seed", str(SEED), "--test_ratio", "0.2"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()
+             if x.startswith("{")]
+    with open(os.path.join(repo, "SWEEP_CDAE_r2.jsonl")) as f:
+        record = {r["grid_index"]: r for r in map(json.loads, f)}
+    grid = list(paper_grid())
+    points, deltas = [], []
+    for r in lines:
+        ref = record[r["grid_index"]]["R@10"]
+        deltas.append(r["R@10"] - ref)
+        points.append(dict(grid_index=r["grid_index"], r10=r["R@10"],
+                           map10=r["MAP@10"], record_r10=ref,
+                           delta=r["R@10"] - ref))
+    mean_delta = sum(deltas) / len(deltas) if deltas else float("nan")
+    ok = (len(lines) == SWEEP_POINTS
+          and [r["grid_index"] for r in lines] == list(range(SWEEP_POINTS))
+          and all({k: r[k] for k in grid[0]} == grid[r["grid_index"]]
+                  for r in lines)
+          and all(_finite(r["R@10"]) and _finite(r["MAP@10"])
+                  for r in lines)
+          and abs(mean_delta) <= SWEEP_GATE)
+    return dict(phase="sweep", points=points, mean_delta=mean_delta,
+                gate=SWEEP_GATE, seconds=wall,
+                seconds_per_point=wall / max(len(lines), 1), ok=ok)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3328,6 +3678,20 @@ def main() -> int:
         emit(dict(phase="linear_wall", seconds=time.perf_counter() - t_lin))
     else:
         failed.append("feature-group phases (no ML-1M run to build on)")
+    if "ml1m" in held and "imf_sparse" in held:
+        t_left = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts("leftovers")
+            run("native_loader",
+                lambda: phase_native_loader(torch, tmp, held))
+            run("recommend", lambda: phase_recommend(torch, held))
+            run("sweep", lambda: phase_sweep(torch, tmp, repo))
+            read_counts("leftovers", launches, failed)
+        emit(dict(phase="leftovers_wall",
+                  seconds=time.perf_counter() - t_left))
+    else:
+        failed.append("leftover phases (no ML-1M CDAE or IMF run to build "
+                      "on)")
     emit(dict(phase="wall", seconds=time.perf_counter() - t_start))
 
     table = []

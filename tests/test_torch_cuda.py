@@ -19,7 +19,9 @@ bits, B9 on IMF, and a failing kernel launch raising instead of falling
 back), ALS/WRMF and ItemCF/UserCF, and the feature-group models
 (LinearModel, FactorModel, NegMF sparse and slab: an epoch on the card
 against one on the CPU from the same injected draws, two runs bit for bit,
-no fall-back).
+no fall-back), and the single-card leftovers (CDAE's recommend through B3
+against the plain decode, a sweep point's epoch with B1 and B2 against the
+plain versions, the host loader built and parsing on the card's host).
 Every test is marked ``cuda`` and skips when torch.cuda.is_available() is
 False (the kernels have no CPU mode).
 
@@ -28,6 +30,8 @@ without them; there, skip the JAX conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1449,3 +1453,95 @@ def test_feature_models_do_not_fall_back(cuda, monkeypatch, route):
                         _FailingLib(cuda_lib.lib(), "cdae_scatter_reduce"))
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         model.train_one_iteration(state, 5)
+
+
+# -- the single-card leftovers: recommend, the sweep's step, the host loader
+
+
+def _lowrank_split(users=2000, items=800, degree=40):
+    from cdae_tpu_torch.data.synthetic import lowrank_interactions
+
+    data = lowrank_interactions(users, items, degree, seed=20141119)
+    return data.split_by_user(0.2, seed=20141119)
+
+
+@pytest.mark.cuda
+def test_cdae_recommend_with_b3_matches_plain(cuda):
+    """recommend on the card through B3 (decode_scores) against the plain
+    decode from the same parameters: the same ids wherever the plain gap
+    between the 10th and 11th score exceeds 1e-4, no rated id anywhere."""
+    from cdae_tpu_torch.models.cdae import CDAE, CDAEConfig
+    from cdae_tpu_torch.ops.topk import topk_unrated
+
+    train, _ = _lowrank_split()
+    cfg = dict(num_dim=50, corruption_ratio=0.5, loss="CE", batch_size=64)
+    model = CDAE(CDAEConfig(**cfg), device=cuda)
+    state = model.reset(train, seed=3)
+    model.train_epochs(state, 2, 3)
+    plain = CDAE(CDAEConfig(**cfg, use_pallas=False), device=cuda)
+    uids = np.arange(train.num_users, dtype=np.int32)
+    before = P.decode_scores.launches
+    ids = model.recommend(state, uids, train, k=10)
+    assert P.decode_scores.launches > before
+    from cdae_tpu_torch.data.dataset import rows_from_csr
+
+    rated, _, mask, _ = rows_from_csr(train.csr(), uids, train.num_items)
+    rated_t = torch.from_numpy(rated).to(cuda)
+    scores = plain.batch_scores(state, uids, rated_t,
+                                torch.from_numpy(mask).to(cuda))
+    plain_ids, plain_vals = topk_unrated(scores, rated_t, 11)
+    sure = (plain_vals[:, 9] - plain_vals[:, 10]) > 1e-4
+    same = (torch.sort(ids, 1).values
+            == torch.sort(plain_ids[:, :10], 1).values).all(1)
+    assert int(sure.sum()) > 0.9 * len(uids)
+    assert bool(same[sure].all())
+    assert not bool((ids.long()[:, :, None] == rated_t[:, None, :]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid_index", [1, 66, 151])
+def test_sweep_point_epoch_kernels_match_plain(cuda, grid_index):
+    """One epoch of a grid point's dense step with the kernels (B1 masks,
+    one B2 launch a step) against the plain versions from the same reset
+    and hash masks: 1e-4 relative per table."""
+    from cdae_tpu_torch.models.cdae import CDAE
+    from cdae_tpu_torch.sweep import paper_grid, point_config
+
+    train, _ = _lowrank_split()
+    cfg = point_config(list(paper_grid())[grid_index], 64)
+    tables = {}
+    for use_pallas in (True, False):
+        model = CDAE(dataclasses.replace(cfg, use_pallas=use_pallas),
+                     device=cuda)
+        state = model.reset(train, seed=20141119)
+        assert "dense_R" in state.aux
+        b2 = P.adagrad_update.launches
+        model.train_epochs(state, 1, 20141119)
+        if use_pallas:
+            assert P.adagrad_update.launches > b2
+        tables[use_pallas] = state.params
+    for name in tables[True]:
+        assert _rel(tables[True][name], tables[False][name]) <= 1e-4, name
+
+
+@pytest.mark.cuda
+def test_native_loader_builds_and_parses_on_this_host(cuda, tmp_path):
+    from cdae_tpu_torch import _native
+    from cdae_tpu_torch.data.dataset import (Interactions,
+                                             movielens_line_parser)
+
+    assert _native.available()
+    rng = np.random.default_rng(2)
+    path = tmp_path / "ratings.txt"
+    path.write_text("".join(
+        f"{u}::{i}::{r}::0\n" for u, i, r in zip(
+            rng.integers(0, 900, 150_000).tolist(),
+            rng.integers(0, 700, 150_000).tolist(),
+            rng.integers(1, 6, 150_000).tolist())))
+    fast = Interactions.from_text(str(path), movielens_line_parser)
+    slow = Interactions.from_text(str(path), movielens_line_parser,
+                                  use_native=False)
+    for f in ("users", "items", "ratings"):
+        np.testing.assert_array_equal(getattr(fast, f), getattr(slow, f))
+    assert fast.user_vocab.to_list() == slow.user_vocab.to_list()
+    assert fast.item_vocab.to_list() == slow.item_vocab.to_list()

@@ -20,9 +20,11 @@ names = [m.name for m in pkgutil.walk_packages(cdae_tpu_torch.__path__,
                                                "cdae_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
+for name in cdae_tpu_torch.__all__:  # the lazy top-level names too
+    getattr(cdae_tpu_torch, name)
 bad = [m for m in sys.modules if m == "cdae_tpu" or m.startswith("cdae_tpu.")]
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -33,7 +35,25 @@ def test_imports_without_jax():
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15  # every module was imported
+    names = set(out.stdout.split())
+    assert len(names) >= 15  # every module was imported
+    for mod in ("_native", "sweep", "utils.parallel", "solver.line_search",
+                "utils.random", "utils.checkpoint", "cli"):
+        assert f"cdae_tpu_torch.{mod}" in names, mod
+
+
+def test_top_level_api_equals_cdae_tpu():
+    """The port's ``__all__`` is cdae_tpu's and every name resolves (the
+    eight model, solver and evaluator names lazily, as there)."""
+    import cdae_tpu
+    import cdae_tpu_torch
+
+    assert cdae_tpu_torch.__all__ == cdae_tpu.__all__
+    for name in cdae_tpu_torch.__all__:
+        port, ref = getattr(cdae_tpu_torch, name), getattr(cdae_tpu, name)
+        assert type(port) is type(ref) or (callable(port) and callable(ref))
+        if isinstance(ref, dict):  # the registry: the same model names
+            assert set(port) == set(ref), name
 
 
 def test_cuda_request_raises_without_gpu(monkeypatch, tmp_path):
@@ -49,21 +69,26 @@ def test_cuda_request_raises_without_gpu(monkeypatch, tmp_path):
 
 
 def test_later_tasks_and_methods_exit_with_message(movielens_path,
-                                                   tmp_path):
-    """The sweep task and --sharded exit naming a later slice; every
-    method cdae_tpu takes builds (LINEAR, FM and NEGMF were the last to
-    come; ALS, WRMF, ITEMCF and USERCF before them) and one it does not
+                                                   tmp_path, capsys):
+    """--sharded exits naming a later slice (the sharded trainers); the
+    sweep task, which once exited so too, runs (one grid point here);
+    every method cdae_tpu takes builds (LINEAR, FM and NEGMF were the last
+    to come; ALS, WRMF, ITEMCF and USERCF before them) and one it does not
     know exits with ``unknown --method``; --task train trains Popularity
     first (it once refused to run without --skip_popularity): with
     --method NONE it trains Popularity alone and returns its TOPN row, as
     cdae_tpu's CLI does."""
     from cdae_tpu_torch import cli
 
-    with pytest.raises(SystemExit, match="later slice"):
-        cli.run(["--task", "sweep", "--method", "CDAE"])
     cache = str(tmp_path / "ml.bin")
     cli.run(["--task", "prepare", "--parser", "movielens",
              "--input_file", movielens_path, "--cache_file", cache])
+    capsys.readouterr()
+    assert cli.run(["--task", "sweep", "--method", "CDAE", "--cache_file",
+                    cache, "--sweep_limit", "1", "--max_iters", "1",
+                    "--device", "cpu"]) == {}
+    (line,) = capsys.readouterr().out.splitlines()
+    assert '"grid_index": 0' in line
     args = cli.build_arg_parser().parse_args(
         ["--task", "train", "--method", "NONE", "--cache_file", cache,
          "--device", "cpu"])
@@ -80,7 +105,7 @@ def test_later_tasks_and_methods_exit_with_message(movielens_path,
         assert type(model).__name__ == name
     with pytest.raises(SystemExit, match="unknown --method LINEARX"):
         cli.run(["--task", "test", "--method", "LINEARX", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="later slice"):
+    with pytest.raises(SystemExit, match="later slice.*sharded trainers"):
         cli.run(["--task", "train", "--method", "BPR", "--sharded", "true",
                  "--cache_file", cache, "--device", "cpu",
                  "--skip_popularity"])
