@@ -26,11 +26,19 @@ CPU -- a CUDA request without a GPU raises). Tasks:
               line a point
 
 ``prepare`` parses the two built-in formats with the multithreaded host
-loader (--num_thread threads, 0 = all cores). ``--sharded`` comes with a
-later slice of the port and exits with a message saying so; a method
-cdae_tpu does not know exits with ``unknown --method``. LINEAR and FM have
-no TOPN scores (cdae_tpu's have none either): train them with ``--eval
-RMSE`` or ``MAE``.
+loader (--num_thread threads, 0 = all cores). A method cdae_tpu does not
+know exits with ``unknown --method``. LINEAR and FM have no TOPN scores
+(cdae_tpu's have none either): train them with ``--eval RMSE`` or ``MAE``.
+
+``--sharded true`` trains (or tests) the method's sharded wrapper
+(``wrap_sharded``, parallel/trainer.py) over a ('data', 'model') mesh of
+processes, --mesh_model of them on 'model' (--shard_items: the MF family's
+item-sharded ShardedMFTP). Every process runs the same command line with
+CDAE_COORDINATOR (``host:port`` of rank 0, or a ``file://`` path),
+CDAE_NUM_PROCESSES and CDAE_PROCESS_ID set (parallel/distributed.py; none
+set: one process, a 1 x 1 mesh); NCCL on CUDA devices (rank r on
+``cuda:r % device_count``), gloo on the CPU. Every rank trains and
+evaluates; only rank 0 logs and writes checkpoints.
 
 Run: ``python -m cdae_tpu_torch.cli --task train --method CDAE ...``
 """
@@ -57,11 +65,6 @@ PARSERS = {
     "default": default_line_parser,  # "user item" -> label 1
     "movielens": movielens_line_parser,  # "u::i::r::ts"
 }
-
-_LATER = ("is not ported to cdae_tpu_torch yet: it comes with a later "
-          "slice of the port, the sharded trainers (ROADMAP.md queue A "
-          "item 4)")
-
 
 def _booly(v: str) -> bool:
     return str(v).lower() in ("1", "true", "t", "yes", "y")
@@ -160,8 +163,6 @@ def build_model(args):
     method = {"MF": "IMF", "POPULARITY": "POP"}.get(method, method)
     if method not in MODEL_REGISTRY:
         raise SystemExit(f"unknown --method {args.method}")
-    if args.sharded:
-        raise SystemExit(f"--sharded {_LATER}")
     dense = None if args.dense_mode == "auto" else _booly(args.dense_mode)
     cls, cfg_cls = MODEL_REGISTRY[method]
     if cfg_cls is None:
@@ -218,6 +219,56 @@ def build_model(args):
     ), device=args.device)
 
 
+def wrap_sharded(model, args):
+    """--sharded dispatch: the mesh-sharded trainer for --method (the
+    order and the refusals of cdae_tpu's). Drop-in for Solver/Evaluation;
+    the mesh from --mesh_model (the rest on 'data'), over the processes of
+    the group (``initialize`` first)."""
+    from cdae_tpu_torch import models as M
+    from cdae_tpu_torch.parallel import trainer as T
+    from cdae_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_model=max(args.mesh_model, 1),
+                     device="cpu" if args.device == "cpu" else None)
+    if isinstance(model, M.CDAE):
+        return T.ShardedCDAE(model.cfg, mesh=mesh)
+    if isinstance(model, (M.BPR, M.WARP, M.IMF, M.PMF)):
+        if args.shard_items:
+            from cdae_tpu_torch.parallel.tp_pairwise import ShardedMFTP
+
+            return ShardedMFTP(model, mesh=mesh)
+        if isinstance(model, M.IMF) and _booly(args.dense_mode):
+            return T.ShardedIMF(model.cfg, mesh=mesh)  # dense (U,I) slabs
+        return T.ShardedPairwise(model, mesh=mesh)
+    if isinstance(model, M.WRMF):  # before ALS: WRMF subclasses it
+        return T.ShardedWRMF(model.cfg, mesh=mesh)
+    if isinstance(model, M.ALS):
+        return T.ShardedALS(model.cfg, mesh=mesh)
+    if isinstance(model, M.FISMPair):
+        raise SystemExit("--sharded does not cover FISMPAIR (pointwise "
+                         "ShardedFISM only); train it single-chip")
+    if isinstance(model, M.FISM):
+        return T.ShardedFISM(model.cfg, mesh=mesh)
+    if isinstance(model, M.NegMF):
+        return T.ShardedNegMF(model, mesh=mesh)
+    raise SystemExit(f"--sharded not supported for --method {args.method}")
+
+
+def _build(args):
+    """``build_model``, wrapped by ``wrap_sharded`` under --sharded (the
+    process group joined first)."""
+    if args.sharded:
+        import logging
+
+        from cdae_tpu_torch.parallel.distributed import initialize, is_primary
+
+        initialize(device=args.device)
+        if not is_primary():
+            logger.setLevel(logging.WARNING)  # rank 0 logs the run
+    model = build_model(args)
+    return wrap_sharded(model, args) if args.sharded else model
+
+
 def _eval_types(args) -> list:
     from cdae_tpu_torch.evaluation import Evaluation
 
@@ -247,7 +298,9 @@ def train(args):
         return None
     # resolve --device (and the method) before loading: fails fast
     pop = None if args.skip_popularity else Popularity(device=args.device)
-    model = None if none else build_model(args)
+    model = None if none else _build(args)
+    if model is not None and args.sharded and pop is not None:
+        pop = Popularity(device=model.device)  # the rank's own device
     data = data_io.load_interactions(args.cache_file)
     logger.info("loaded %s", data)
     train_data, test = data.split_by_user(args.test_ratio, seed=args.seed)
@@ -257,7 +310,8 @@ def train(args):
         pop_solver.train(train_data, test, ["TOPN"])
     if none:
         return pop_solver
-    solver_cls = (SGDSolver if isinstance(model, (FISM, LinearModel))
+    inner = getattr(model, "inner", model) if args.sharded else model
+    solver_cls = (SGDSolver if isinstance(inner, (FISM, LinearModel))
                   else Solver)
     solver = solver_cls(model, max_iteration=args.max_iters,
                         eval_iterations=args.eval_iters, seed=args.seed,
@@ -317,7 +371,7 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, float]:
     from cdae_tpu_torch.solver.solver import Solver
     from cdae_tpu_torch.utils import checkpoint as ckpt
 
-    model = build_model(args)  # resolves --device first: fails fast
+    model = _build(args)  # resolves --device first: fails fast
     eval_types = _eval_types(args)
     train_data = data_io.load_interactions(args.train_cache_file)
     test = data_io.load_interactions(args.test_cache_file)
@@ -325,7 +379,8 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, float]:
     solver = Solver(model)
     solver.state = model.reset(train_data, seed=args.seed)
     if args.init_checkpoint:
-        ckpt.load_checkpoint(args.init_checkpoint, solver.state)
+        ckpt.load_model_checkpoint(model, args.init_checkpoint,
+                                   solver.state)
     return solver.test(test, eval_types, train_data=train_data)
 
 

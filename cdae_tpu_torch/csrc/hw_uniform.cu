@@ -1,5 +1,7 @@
 // (rows, cols) float32 uniforms in [0, 1), element (r, c) =
-// hash_uniform(seed, r, c, draw).
+// hash_uniform(seed, row_offset + r, col_offset + c, draw): with the
+// offsets, a block of a larger draw (a sharded step draws its own rows and
+// columns of the single-device draw).
 //
 // Replaces cdae_tpu/ops/pallas_kernels.py:hw_uniform (the Pallas kernel
 // that draws the corruption and negative masks from the TPU's hardware
@@ -29,7 +31,7 @@ constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
 hw_uniform_kernel(float* __restrict__ out, int rows, int cols, uint32_t seed,
-                  uint32_t draw) {
+                  uint32_t draw, uint32_t row_offset, uint32_t col_offset) {
   const long long n = static_cast<long long>(rows) * cols;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads * 4;
   for (long long e = (static_cast<long long>(blockIdx.x) * kThreads +
@@ -40,7 +42,7 @@ hw_uniform_kernel(float* __restrict__ out, int rows, int cols, uint32_t seed,
     float v[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      v[k] = cdae::hash_uniform(seed, r, c, draw);
+      v[k] = cdae::hash_uniform(seed, row_offset + r, col_offset + c, draw);
       if (++c == cols) {
         c = 0;
         ++r;
@@ -59,13 +61,15 @@ hw_uniform_kernel(float* __restrict__ out, int rows, int cols, uint32_t seed,
 
 // Launches on ``stream`` and returns cudaGetLastError() (0 = launched).
 extern "C" int cdae_hw_uniform(float* out, int rows, int cols, int seed,
-                               int draw, void* stream) {
+                               int draw, int row_offset, int col_offset,
+                               void* stream) {
   const long long groups = (static_cast<long long>(rows) * cols + 3) / 4;
   long long blocks = (groups + kThreads - 1) / kThreads;
   if (blocks > 65535LL * 16) blocks = 65535LL * 16;  // grid-stride beyond
   hw_uniform_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       out, rows, cols, static_cast<uint32_t>(seed),
-      static_cast<uint32_t>(draw));
+      static_cast<uint32_t>(draw), static_cast<uint32_t>(row_offset),
+      static_cast<uint32_t>(col_offset));
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,9 @@
 // the exact violator count, and j[b, k] for each slot k < nn: the violator
 // with the largest 24-bit noise of (seed, b, c, k), the lowest column on
 // equal noise (what jnp.argmax plus the strict > across the TPU's catalog
-// tiles gives); 0 for a row with no violator. The noise is cdae_tpu's hash
+// tiles gives); 0 for a row with no violator. b counts from row_offset (0
+// for a whole batch; a sharded step passes its block's first row, so its
+// picks are those rows of the whole batch's). The noise is cdae_tpu's hash
 // of the global coordinates, bit for bit, in unsigned 32-bit arithmetic:
 //   mshift (default): base = mix(seed + c*C1 + b*C2), base2 = a second mix
 //     of base, noise_k = (base*a_k + base2*b_k) >> 8;
@@ -101,7 +103,7 @@ warp_select_kernel(uint32_t seed, const float* __restrict__ uv,
                    const float* __restrict__ thr,
                    const int8_t* __restrict__ mask, int* __restrict__ part,
                    int* __restrict__ nviol, int* __restrict__ j, int B, int I,
-                   int D, int nn, int S, int per_split) {
+                   int D, int nn, int S, int per_split, uint32_t row_offset) {
   constexpr int kRows = kWarps * TR;
   // kExact: nn == kMaxNN, so the slot loops carry no branch and the
   // compiler interleaves the cells' integer chains
@@ -162,7 +164,9 @@ warp_select_kernel(uint32_t seed, const float* __restrict__ uv,
     for (int r = 0; r < TR; ++r) {
       live[r] = wr0 + r < B;
       t[r] = live[r] ? thr[wr0 + r] : 0.f;
-      hrow[r] = seed + static_cast<uint32_t>(wr0 + r) * kC2;
+      // the noise hashes the row of the whole batch: a block of rows
+      // (row_offset on) picks what the whole batch's launch picks there
+      hrow[r] = seed + (row_offset + static_cast<uint32_t>(wr0 + r)) * kC2;
       cnt[r] = 0;
 #pragma unroll
       for (int k = 0; k < kMaxNN; ++k) best[r][k] = 0u;
@@ -385,7 +389,7 @@ cudaError_t launch_select(uint32_t seed, const float* uv, const float* iv,
                           const float* ib, const float* thr,
                           const int8_t* mask, int* part, int* nviol, int* j,
                           int B, int I, int D, int nn, int S, int per_split,
-                          cudaStream_t s) {
+                          uint32_t row_offset, cudaStream_t s) {
   auto* kernel = warp_select_kernel<TR, kMaxNN, kExact, NOISE>;
   static cdae::SmemLimit limit;  // above the default 48 KB
   if (const cudaError_t err = limit.raise(kernel, kSmemMax);
@@ -403,7 +407,8 @@ cudaError_t launch_select(uint32_t seed, const float* uv, const float* iv,
   const size_t smem = ((size_t)D * (per_split + 4) + per_split +
                        (size_t)kRows * D) * sizeof(float);
   kernel<<<dim3(row_blocks, S), kThreads, smem, s>>>(
-      seed, uv, iv, ib, thr, mask, part, nviol, j, B, I, D, nn, S, per_split);
+      seed, uv, iv, ib, thr, mask, part, nviol, j, B, I, D, nn, S, per_split,
+      row_offset);
   return cudaGetLastError();
 }
 
@@ -420,7 +425,8 @@ extern "C" int cdae_warp_select(int seed, const float* uv, const float* iv,
                                 const float* ib, const float* thr,
                                 const int8_t* mask, int* part, int* nviol,
                                 int* j, int B, int I, int D, int nn, int S,
-                                int per_split, int noise, void* stream) {
+                                int per_split, int noise, int row_offset,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t useed = static_cast<uint32_t>(seed);
   if (per_split % kChunk || per_split > kMaxChunks * kChunk) {
@@ -429,7 +435,7 @@ extern "C" int cdae_warp_select(int seed, const float* uv, const float* iv,
 #define CDAE_SELECT(TR, NN, EXACT, NOISE)                                 \
   launch_select<TR, NN, EXACT, NOISE>(useed, uv, iv, ib, thr, mask, part,   \
                                       nviol, j, B, I, D, nn, S, per_split, \
-                                      s)
+                                      static_cast<uint32_t>(row_offset), s)
   // mshift, WARP's noise, has a kernel for each nn <= 8; hash (the tests')
   // one for nn <= 8; nn > 8 one each, with fewer rows a thread
   cudaError_t err;

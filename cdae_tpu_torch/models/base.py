@@ -212,10 +212,25 @@ class RecsysModel:
     that hold tensors set ``device``."""
 
     name = "RecsysModel"
+    # a sharded wrapper's builder of its rank's dense_R block
+    # (parallel/mesh.py ``Collectives.dense_block``); None: the whole matrix
+    dense_block = None
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         """``x`` as a tensor on the model's device."""
         return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def _dense_R(self, data) -> torch.Tensor:
+        """The int8 (U, I) interaction matrix dense_R on the device, or
+        this rank's block of it where a sharded wrapper set
+        ``dense_block``."""
+        if self.dense_block is not None:
+            return self.dense_block(data.users, data.items)
+        R = torch.zeros((data.num_users, data.num_items), dtype=torch.int8,
+                        device=self.device)
+        R[self._tensor(data.users, torch.long),
+          self._tensor(data.items, torch.long)] = 1
+        return R
 
     def _dense_user_batches(self, state: ModelState):
         """(k, B) uid and weight tensors of a user-slab route (B =

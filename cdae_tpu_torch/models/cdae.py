@@ -247,10 +247,7 @@ class CDAE(RecsysModel):
                 and cfg.batch_size * I * 40 <= _DENSE_MAX_SLAB_BYTES
             )
         if dense:
-            R = torch.zeros((U, I), dtype=torch.int8, device=dev)
-            R[self._tensor(data.users, torch.long),
-              self._tensor(data.items, torch.long)] = 1
-            state.aux["dense_R"] = R
+            state.aux["dense_R"] = self._dense_R(data)
         return state
 
     # ------------------------------------------------------------- train ----
@@ -499,22 +496,33 @@ def _mm(a: torch.Tensor, b: torch.Tensor, cfg: CDAEConfig) -> torch.Tensor:
 
 
 def _hidden(params, uids, items, keep_mask, scale, cfg: CDAEConfig,
-            rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+            rows: Optional[torch.Tensor] = None,
+            user_rows=None) -> torch.Tensor:
     """z = act(scale * sum W_i (* Uu) + b (+ Wu)) over a padded (B, L)
     item block; ``keep_mask`` selects the live entries. ``rows``
     (optional): W[clip(items)], gathered already (the sparse step gathers
-    them once for the encoder, the tied decoder and the input gradients)."""
+    them once for the encoder, the tied decoder and the input gradients).
+    ``user_rows`` (optional): the batch's Uu / Wu rows by name, gathered
+    already (a sharded step gathers them from their blocks)."""
     W = params["W"]
     if rows is None:
         rows = W[items.long().clamp(0, W.shape[0] - 1)]  # (B, L, D)
+    if user_rows is None:
+        user_rows = {n: params[n][uids] for n in ("Uu", "Wu") if n in params}
     h = torch.einsum("bld,bl->bd", _operand(rows, cfg),
                      _operand(keep_mask, cfg))
-    h = h.to(W.dtype) * scale
+    return _finish_hidden(h.to(W.dtype) * scale, params, user_rows, cfg)
+
+
+def _finish_hidden(h, params, user_rows, cfg: CDAEConfig) -> torch.Tensor:
+    """The encoder's tail from the scaled input sum ``h`` (B, D): act((Uu
+    *) h + b (+ Wu)), with ``user_rows`` the batch's Uu / Wu rows by
+    name."""
     if cfg.linear_function:
-        h = params["Uu"][uids] * h
+        h = user_rows["Uu"] * h
     h = h + params["b"][None, :]
     if cfg.user_factor:
-        h = h + params["Wu"][uids]
+        h = h + user_rows["Wu"]
     return _activation(h, cfg.linear, cfg.tanh)
 
 
@@ -535,12 +543,8 @@ def _dense_scores(params, dense_R, uids, *, cfg: CDAEConfig):
     if cfg.corruption_ratio == 1.0:
         rows = torch.zeros_like(rows)
     h = _mm(rows, params["W"], cfg).to(dt)
-    if cfg.linear_function:
-        h = params["Uu"][uids] * h
-    h = h + params["b"][None, :]
-    if cfg.user_factor:
-        h = h + params["Wu"][uids]
-    return _decode(params, _activation(h, cfg.linear, cfg.tanh), cfg)
+    user_rows = {n: params[n][uids] for n in ("Uu", "Wu") if n in params}
+    return _decode(params, _finish_hidden(h, params, user_rows, cfg), cfg)
 
 
 def _batch_scores(params, uids, rated_items, rated_mask, *, cfg: CDAEConfig):
@@ -583,16 +587,25 @@ def _batch_topk_impl(params, uids, rated_items, rated_mask, dense_R, *,
 
 # ============================================================ training ====
 
-def _draw_uniforms(seed: int, shape, draws, cfg: CDAEConfig, device):
+def _draw_uniforms(seed: int, shape, draws, cfg: CDAEConfig, device,
+                   block=None):
     """(B, I) f32 uniforms of one step seed, one per entry of ``draws``:
     ``hw_uniform(seed, shape, draw)`` with ``fast_rng`` (its kernel when
     ``use_pallas`` is on), else successive ``torch.rand`` draws of a
-    generator seeded with ``seed``."""
+    generator seeded with ``seed``. ``block`` = (row offset, column
+    offset, whole shape): ``shape`` is that block of the whole draw (a
+    sharded step's): B1 draws the block alone, a generator the whole
+    shape, then the block is cut out."""
+    r0, c0, full = block if block is not None else (0, 0, shape)
     if cfg.fast_rng:
         fn = hw_uniform if cfg.use_pallas else hw_uniform_plain
-        return [fn(seed, shape, d, device=device) for d in draws]
+        return [fn(seed, shape, d, device=device, row_offset=r0,
+                   col_offset=c0) for d in draws]
     gen = torch.Generator(device=device).manual_seed(seed & _MASK32)
-    return [torch.rand(shape, generator=gen, device=device) for _ in draws]
+    whole = [torch.rand(full, generator=gen, device=device) for _ in draws]
+    if block is None:
+        return whole
+    return [u[r0:r0 + shape[0], c0:c0 + shape[1]] for u in whole]
 
 
 def _z_one_minus_z(z: torch.Tensor, cfg: CDAEConfig) -> torch.Tensor:
@@ -696,6 +709,7 @@ def _dense_train_step(
     loss: Loss,
     u_corrupt: Optional[torch.Tensor] = None,  # (B, I) f32 uniforms
     u_neg: Optional[torch.Tensor] = None,  # (B, I) f32 uniforms
+    coll=None,  # parallel/mesh.py Collectives: a sharded step
 ) -> Dict[str, torch.Tensor]:
     """One full-catalog dense minibatch step: corrupt, encode ((B, I) x
     (I, D)), activate, draw Bernoulli negatives (expected count
@@ -707,7 +721,19 @@ def _dense_train_step(
     ``u_corrupt`` / ``u_neg`` inject the corruption and negative uniforms;
     when absent they are drawn from ``seed`` (``_draw_uniforms``). With
     ``compute_dtype`` bf16 the (B, I) slabs live in bf16, as in cdae_tpu:
-    the 0/1 masks are exact, and the loss-gradient slab rounds."""
+    the 0/1 masks are exact, and the loss-gradient slab rounds.
+
+    ``coll`` (parallel/mesh.py ``Collectives``; None: the single-device
+    step) makes this one rank's step of a sharded run: ``uids`` / ``weight``
+    are still the whole batch, of which the step takes its rows
+    (``coll.rows``); ``dense_R`` is the rank's (user, item) block
+    (``coll.batch_rows`` reads it), the item tables its item block, Wu / Uu
+    its user block. The encode's partial pre-activation,
+    the row lengths and the back-propagated hidden gradient are summed
+    over 'model', every dense gradient over 'data' before the one B2
+    launch; the user rows are gathered from and updated on their owners.
+    Draws are the block of the single-device step's (B1 at the block's
+    offsets). Injected uniforms are the block's."""
     if _use_fused_step(cfg):
         return _dense_train_step_fused(params, dense_R, uids, weight, seed,
                                        cfg=cfg, loss=loss)
@@ -718,29 +744,47 @@ def _dense_train_step(
     f32 = torch.float32
     lam, lr, beta = cfg.lambda_, cfg.learn_rate, cfg.beta
     use_kernel = bool(cfg.use_pallas)
+    uids_all, weight_all, block = uids, weight, None
+    if coll is not None:
+        sl = coll.rows(uids.shape[0])
+        uids, weight = uids[sl], weight[sl]
+        block = (sl.start, coll.col_offset, (uids_all.shape[0],
+                                             coll.num_items))
+        I = coll.num_items  # the negatives' rate is the whole catalog's
+
+    def user_rows(name):
+        if coll is None:
+            return params[name][uids]
+        return coll.gather_users(params[name], uids_all)[sl]
+
     w_user = weight.to(sdt)
-    rows = dense_R[uids].to(sdt) * w_user[:, None]  # (B, I) 0/1
+    R_rows = (dense_R[uids] if coll is None
+              else coll.batch_rows(dense_R, uids_all))
+    rows = R_rows.to(sdt) * w_user[:, None]  # (B, I) 0/1
     # counts exceed bf16's exact-integer range -- accumulate f32
     lengths = rows.sum(dim=1, dtype=f32).to(dt)
+    if coll is not None:
+        lengths = coll.model_sum(lengths)  # whole counts: exact
     shape = tuple(rows.shape)
     q = cfg.corruption_ratio
     need = [0] if q > 0.0 and u_corrupt is None else []  # draw 0: corruption
     if u_neg is None:
         need.append(1)  # draw 1: negatives
-    drawn = dict(zip(need, _draw_uniforms(seed, shape, need, cfg, W.device)))
+    drawn = dict(zip(need, _draw_uniforms(seed, shape, need, cfg, W.device,
+                                          block)))
     u_corrupt = drawn.get(0, u_corrupt)
     u_neg = drawn.get(1, u_neg)
 
     kept = rows * (u_corrupt > q).to(sdt) if q > 0.0 else rows
     scale = input_scale(q, cfg.scaled)
 
-    h = _mm(kept, W, cfg).to(dt) * scale
-    if cfg.linear_function:
-        h = params["Uu"][uids] * h
-    h = h + params["b"][None, :]
-    if cfg.user_factor:
-        h = h + params["Wu"][uids]
-    z = _activation(h, cfg.linear, cfg.tanh)
+    h = _mm(kept, W, cfg).to(dt)
+    if coll is not None:
+        h = coll.model_sum(h)
+    uu_rows = user_rows("Uu") if cfg.linear_function else None
+    wu_rows = user_rows("Wu") if cfg.user_factor else None
+    z = _finish_hidden(h * scale, params, {"Uu": uu_rows, "Wu": wu_rows},
+                       cfg)
     dz = _z_one_minus_z(z, cfg)
 
     p_neg = _neg_probability(lengths, I, cfg).to(sdt)
@@ -756,9 +800,12 @@ def _dense_train_step(
 
     touches = w_mat.sum(dim=0, dtype=f32).to(dt)  # (I,)
     d_bp = g.sum(dim=0, dtype=f32).to(dt) + lam * touches * params["b_prime"]
-    hg = _mm(g, table, cfg).to(dt) * dz
+    hg = _mm(g, table, cfg).to(dt)
+    if coll is not None:
+        hg = coll.model_sum(hg)
+    hg = hg * dz
 
-    base = (params["Uu"][uids] * hg if cfg.linear_function else hg) * scale
+    base = (uu_rows * hg if cfg.linear_function else hg) * scale
     if cfg.asymmetric:
         # decoder touches update V; kept inputs update W with base + lam*W
         d_V = _mm(g.t(), z, cfg).to(dt) + lam * touches[:, None] * table
@@ -771,57 +818,97 @@ def _dense_train_step(
                + lam * touches[:, None] * W)
     # Uu's gradient needs the pre-update W: take it before the sweep
     sum_kept_W = _mm(kept, W, cfg).to(dt) if cfg.linear_function else None
+    if coll is not None and sum_kept_W is not None:
+        sum_kept_W = coll.model_sum(sum_kept_W)
     dense = {"W": d_W, "b_prime": d_bp}
     if cfg.asymmetric:
         dense["V"] = d_V
     dense["b"] = w_user.to(f32) @ hg + w_user.sum() * lam * params["b"]
+    if coll is not None:
+        dense = coll.data_sum_all(dense)
     # every dense grad is taken: one sweep (one kernel launch) for them all
     dense_adagrad_steps(
         [(params[name], params[name + "_ag"], g) for name, g in dense.items()],
         lr, beta, cfg.using_adagrad, use_kernel)
-
-    def row_step(name, grad_rows):
-        row_adagrad_delta(params[name], params[name + "_ag"], uids,
-                          grad_rows, w_user[:, None] > 0, lr, beta,
-                          cfg.using_adagrad)
-
-    if cfg.user_factor:
-        row_step("Wu", (hg + lam * params["Wu"][uids]) * w_user[:, None])
-    if cfg.linear_function:
-        row_step("Uu", (lam * params["Uu"][uids] + hg * sum_kept_W)
-                 * w_user[:, None])
+    _user_row_steps(params, uids, w_user, cfg, coll, uids_all, weight_all, {
+        "Wu": (lambda: (hg + lam * wu_rows) * w_user[:, None])
+        if cfg.user_factor else None,
+        "Uu": (lambda: (lam * uu_rows + hg * sum_kept_W) * w_user[:, None])
+        if cfg.linear_function else None,
+    })
     return params
 
 
+def _user_row_steps(params, uids, w_user, cfg: CDAEConfig, coll, uids_all,
+                    weight_all, grads) -> None:
+    """Per-user-row AdaGrad of Wu, then Uu (``grads``: name -> a function
+    giving the batch rows' gradient, or None), by the duplicate-safe
+    delta-add. With ``coll`` the rows' gradients are gathered over 'data'
+    and each rank updates the rows of its user block."""
+    lr, beta = cfg.learn_rate, cfg.beta
+    for name in ("Wu", "Uu"):
+        fn = grads.get(name)
+        if fn is None:
+            continue
+        if coll is None:
+            row_adagrad_delta(params[name], params[name + "_ag"], uids,
+                              fn(), w_user[:, None] > 0, lr, beta,
+                              cfg.using_adagrad)
+            continue
+        rows, owned = coll.own_users(uids_all)
+        row_adagrad_delta(params[name], params[name + "_ag"], rows,
+                          coll.data_gather(fn()),
+                          ((weight_all > 0) & owned)[:, None], lr, beta,
+                          cfg.using_adagrad)
+
+
 def _dense_data_loss(params, dense_R, uids, weight, seed: int, *,
-                     cfg: CDAEConfig, loss: Loss, uniforms=None
+                     cfg: CDAEConfig, loss: Loss, uniforms=None, coll=None
                      ) -> torch.Tensor:
     """Dense-mode reconstruction loss over the positives, averaged over
     ``num_corruptions`` corruptions. ``uniforms[c]`` (optional) is the
-    (B, I) corruption draw of corruption c; otherwise draw c of ``seed``."""
+    (B, I) corruption draw of corruption c; otherwise draw c of ``seed``.
+    ``coll``: one rank's part of a sharded run's loss, as in
+    ``_dense_train_step`` (the encode summed over 'model', the loss over
+    both axes; injected uniforms are the rank's block)."""
     W = params["W"]
     dt = W.dtype
+    uids_all, block = uids, None
+    if coll is not None:
+        sl = coll.rows(uids.shape[0])
+        uids, weight = uids[sl], weight[sl]
     w_user = weight.to(dt)
-    rows = dense_R[uids].to(dt) * w_user[:, None]
+    R_rows = (dense_R[uids] if coll is None
+              else coll.batch_rows(dense_R, uids_all))
+    rows = R_rows.to(dt) * w_user[:, None]
+    if coll is not None:
+        block = (sl.start, coll.col_offset, (uids_all.shape[0],
+                                             coll.num_items))
+
+    def user_rows(name):
+        if coll is None:
+            return params[name][uids]
+        return coll.gather_users(params[name], uids_all)[sl]
+
     q = cfg.corruption_ratio
     ncorr = cfg.num_corruptions
     if uniforms is None and q > 0.0:
         uniforms = _draw_uniforms(seed, tuple(rows.shape), range(ncorr), cfg,
-                                  W.device)
+                                  W.device, block)
     scale = input_scale(q, cfg.scaled)
     table = params["V"] if cfg.asymmetric else W
+    urows = {n: user_rows(n) for n in ("Uu", "Wu") if n in params}
     total = torch.zeros((), dtype=torch.float32, device=W.device)
     for c in range(ncorr):
         kept = rows * (uniforms[c] > q).to(dt) if q > 0.0 else rows
-        h = _mm(kept, W, cfg).to(dt) * scale
-        if cfg.linear_function:
-            h = params["Uu"][uids] * h
-        h = h + params["b"][None, :]
-        if cfg.user_factor:
-            h = h + params["Wu"][uids]
-        z = _activation(h, cfg.linear, cfg.tanh)
+        h = _mm(kept, W, cfg).to(dt)
+        if coll is not None:
+            h = coll.model_sum(h)
+        z = _finish_hidden(h * scale, params, urows, cfg)
         pred = _mm(z, table.t(), cfg).to(dt) + params["b_prime"][None, :]
         total = total + torch.sum(loss.evaluate(pred, 1.0) * rows)
+    if coll is not None:
+        total = coll.data_sum(coll.model_sum(total))
     return total / ncorr
 
 
@@ -835,56 +922,78 @@ def _scatter_mode(cfg: CDAEConfig) -> str:
     return "pallas" if cfg.use_pallas else "scatter"
 
 
-def _decode_at(params, z, item_ids, cfg: CDAEConfig):
+def _decode_at(params, z, item_ids, cfg: CDAEConfig, coll=None):
     """(predictions, decoder rows) of the given item ids: y_o = (V|W)_o . z
-    + b'_o over (B, N) ids, clipped into the catalog."""
+    + b'_o over (B, N) ids, clipped into the catalog (with ``coll``, the
+    rows gathered from the rank's item blocks)."""
     table = params["V"] if cfg.asymmetric else params["W"]
-    ids = item_ids.clamp(0, table.shape[0] - 1)
-    rows = table[ids]  # (B, N, D)
+    if coll is None:
+        ids = item_ids.clamp(0, table.shape[0] - 1)
+        rows = table[ids]  # (B, N, D)
+        bp = params["b_prime"][ids]
+    else:
+        ids = item_ids.clamp(0, coll.num_items - 1)
+        rows = coll.gather_items(table, ids)
+        bp = coll.gather_items(params["b_prime"], ids)
     preds = torch.einsum("bnd,bd->bn", _operand(rows, cfg),
                          _operand(z, cfg)).to(table.dtype)
-    return preds + params["b_prime"][ids], rows
+    return preds + bp, rows
 
 
-def _sparse_draws(seed: int, items, lengths, I: int, cfg: CDAEConfig):
+def _sparse_draws(seed: int, items, lengths, I: int, cfg: CDAEConfig,
+                  rows: Optional[slice] = None, B_all: int = 0):
     """The sparse step's draws from its seed, as ``_train_step`` keywords:
     the (B, L) corruption uniforms ``u_keep``, then the exact negatives
     ``neg`` (B, num_neg * L) or the pool ids ``pool`` (K,) with their
     (B, K) selection uniforms ``u_sel``. With ``fast_rng`` the uniforms are
     hw_uniform draws 0 and 1 of the seed and the ids hw_randint draws with
     their own salts (kernel B1 with ``use_pallas``); otherwise a generator
-    seeded with the seed draws them in that order."""
+    seeded with the seed draws them in that order. ``rows`` (a sharded
+    step's block of a batch of ``B_all`` rows; ``items`` and ``lengths``
+    are the block's): the block of the whole batch's draws -- B1 draws at
+    the block's row offset, a generator draws the whole batch's shapes."""
     B, L = items.shape
     dev = items.device
     q = cfg.corruption_ratio
     out = {}
     gen = None
+    r0 = 0 if rows is None else rows.start
+    Bg = B if rows is None else B_all  # the rows a generator draws
+
+    def cut(x):
+        return x if rows is None else x[rows]
+
     if not cfg.fast_rng:
         gen = torch.Generator(device=dev).manual_seed(int(seed) & _MASK32)
     if q > 0.0:
-        out["u_keep"] = (_draw_uniforms(seed, (B, L), [0], cfg, dev)[0]
-                         if cfg.fast_rng else
-                         torch.rand((B, L), generator=gen, device=dev))
+        out["u_keep"] = (
+            _draw_uniforms(seed, (B, L), [0], cfg, dev,
+                           None if rows is None else (r0, 0, (B_all, L)))[0]
+            if cfg.fast_rng else
+            cut(torch.rand((Bg, L), generator=gen, device=dev)))
     if cfg.neg_pool:
         K = int(cfg.neg_pool)
         if cfg.fast_rng:
             out["pool"] = hw_randint(seed, (1, K), I, salt=_POOL_SALT,
                                      device=dev,
                                      use_kernel=bool(cfg.use_pallas))[0]
-            out["u_sel"] = _draw_uniforms(seed, (B, K), [1], cfg, dev)[0]
+            out["u_sel"] = _draw_uniforms(
+                seed, (B, K), [1], cfg, dev,
+                None if rows is None else (r0, 0, (B_all, K)))[0]
         else:
             out["pool"] = torch.randint(0, I, (K,), generator=gen,
                                         device=dev)
-            out["u_sel"] = torch.rand((B, K), generator=gen, device=dev)
+            out["u_sel"] = cut(torch.rand((Bg, K), generator=gen,
+                                          device=dev))
     elif cfg.num_neg > 0:
         shape = (B, cfg.num_neg * L)
         free = torch.clamp(I - lengths, min=1)[:, None]
         if cfg.fast_rng:
             u = hw_randint(seed, shape, free, salt=_NEG_SALT, device=dev,
-                           use_kernel=bool(cfg.use_pallas))
+                           use_kernel=bool(cfg.use_pallas), row_offset=r0)
         else:
-            r = torch.rand(shape, generator=gen, dtype=torch.float64,
-                           device=dev)
+            r = cut(torch.rand((Bg, shape[1]), generator=gen,
+                               dtype=torch.float64, device=dev))
             u = torch.minimum((r * free).to(torch.int64), free - 1)
         out["neg"] = sample_unrated(seed, items, lengths, I, shape[1], u=u)
     return out
@@ -906,6 +1015,7 @@ def _train_step(
     neg: Optional[torch.Tensor] = None,  # (B, num_neg * L) exact negatives
     pool: Optional[torch.Tensor] = None,  # (K,) pooled negative ids
     u_sel: Optional[torch.Tensor] = None,  # (B, K) pool selection uniforms
+    coll=None,  # parallel/mesh.py Collectives: a sharded step
 ) -> Dict[str, torch.Tensor]:
     """One sparse minibatch step (cdae_tpu's ``_train_step``): the batched
     per-user corruption, encode, decode at the positives and the sampled
@@ -924,7 +1034,18 @@ def _train_step(
     The draws come from ``seed`` (``_sparse_draws``) unless injected: the
     keep mask (``keep``, or its uniforms ``u_keep``: kept where u > q), the
     exact negatives ``neg``, or the ``pool`` ids and their selection
-    uniforms ``u_sel``."""
+    uniforms ``u_sel``.
+
+    ``coll`` (parallel/mesh.py ``Collectives``; None: the single-device
+    step) makes this one rank's step of a sharded run: the batch arrays are
+    still the whole batch, of which the step takes its rows
+    (``coll.rows``); W / V / b' are the rank's item blocks and Wu / Uu its
+    user blocks. Item rows are gathered from their owners
+    (``coll.gather_items``), each aggregation sums into the rank's own
+    block only, the dense gradients are summed over 'data' before the one
+    B2 launch, and the user rows update on their owners. The draws are
+    the block's rows of the single-device step's; injected draws are the
+    block's. ``row_update`` has no sharded form."""
     W = params["W"]
     I, D = W.shape
     B, L = items.shape
@@ -935,11 +1056,21 @@ def _train_step(
     use_row = bool(cfg.row_update)
     pack = cfg.packed_io is not False and not cfg.asymmetric and not use_row
     items = items.long()
+    uids_all, weight_all, sl = uids, weight, None
+    n_tbl = I  # rows of this rank's item tables
+    if coll is not None:
+        if use_row:
+            raise ValueError("row_update has no sharded step")
+        sl = coll.rows(B)
+        uids, items, mask, lengths, weight = (
+            x[sl] for x in (uids, items, mask, lengths, weight))
+        B, I = items.shape[0], coll.num_items
     need_keep = keep is None and u_keep is None and q > 0.0
     need_neg = ((pool is None or u_sel is None) if cfg.neg_pool
                 else neg is None and cfg.num_neg > 0)
     if need_keep or need_neg:
-        drawn = _sparse_draws(seed, items, lengths, I, cfg)
+        drawn = _sparse_draws(seed, items, lengths, I, cfg, sl,
+                              uids_all.shape[0])
         u_keep = drawn.get("u_keep") if need_keep else u_keep
         if need_neg:
             neg, pool, u_sel = (drawn.get(k) for k in ("neg", "pool",
@@ -954,22 +1085,32 @@ def _train_step(
     items_c = items.clamp(0, I - 1)
     scale = input_scale(q, cfg.scaled)
 
+    def item_rows(table, ids):
+        return table[ids] if coll is None else coll.gather_items(table, ids)
+
+    user_rows = None
+    if coll is not None:
+        user_rows = {n: coll.gather_users(params[n], uids_all)[sl]
+                     for n in ("Uu", "Wu") if n in params}
+
     # ---- forward: one gather of the positives' W rows serves the encoder,
     # the tied decoder and the input-side gradients
-    enc_rows = W[items_c]  # (B, L, D)
-    z = _hidden(params, uids, items, keep, scale, cfg, rows=enc_rows)
+    enc_rows = item_rows(W, items_c)  # (B, L, D)
+    z = _hidden(params, uids, items, keep, scale, cfg, rows=enc_rows,
+                user_rows=user_rows)
     dz = _z_one_minus_z(z, cfg)
+    bp_items = item_rows(params["b_prime"], items_c)
 
     # ---- positives (truth 1)
     if cfg.asymmetric:
-        pred_pos, dec_pos = _decode_at(params, z, items, cfg)
+        pred_pos, dec_pos = _decode_at(params, z, items, cfg, coll)
     else:
         dec_pos = enc_rows
         pred_pos = torch.einsum("bld,bd->bl", _operand(enc_rows, cfg),
                                 _operand(z, cfg)).to(dt) \
-            + params["b_prime"][items_c]
+            + bp_items
     g_pos = loss.gradient(pred_pos, 1.0) * mask_f
-    bp_pos_vals = (g_pos + lam * params["b_prime"][items_c]) * mask_f
+    bp_pos_vals = (g_pos + lam * bp_items) * mask_f
     hidden_grad = torch.einsum("bl,bld->bd", g_pos, dec_pos)
 
     out_name = "V" if cfg.asymmetric else "W"
@@ -985,12 +1126,14 @@ def _train_step(
         if use_row:
             neg_sets.append((ids, table_vals, bp_vals, live))
             return
-        neg_sum = _aggregate(ids, (table_vals, bp_vals), I, sm, neg_sum)
+        if coll is not None:
+            ids = coll.own_items(ids)
+        neg_sum = _aggregate(ids, (table_vals, bp_vals), n_tbl, sm, neg_sum)
     if cfg.neg_pool:
         K = int(cfg.neg_pool)
         pool = pool.long()
-        dec_pool = dec_table[pool]  # (K, D)
-        bp_pool = params["b_prime"][pool]
+        dec_pool = item_rows(dec_table, pool)  # (K, D)
+        bp_pool = item_rows(params["b_prime"], pool)
         pred_pool = _mm(z, dec_pool.t(), cfg).to(dt) + bp_pool[None, :]
         rated = is_rated(items, lengths, pool)  # (B, K)
         L_u = lengths.to(torch.float32)
@@ -1010,8 +1153,8 @@ def _train_step(
         # B=2048, L=1080, D=200 without the chunks)
         for k in range(max(cfg.num_neg, 0)):
             nk = neg[:, k * L:(k + 1) * L].long()
-            pred_nk, dec_nk = _decode_at(params, z, nk, cfg)
-            bp_nk = params["b_prime"][nk.clamp(0, I - 1)]
+            pred_nk, dec_nk = _decode_at(params, z, nk, cfg, coll)
+            bp_nk = item_rows(params["b_prime"], nk.clamp(0, I - 1))
             # the sentinel id num_items (an empty complement) is no
             # negative: its slot carries no gradient
             nk_live = mask & (nk < I)
@@ -1035,7 +1178,9 @@ def _train_step(
         out_vals = (gz_pos + lam * dec_pos) * direct[..., None]
 
     # ---- input-side (encoder) gradients of the kept items
-    base = (params["Uu"][uids] * hg if cfg.linear_function else hg) * scale
+    uu_rows = (None if not cfg.linear_function else params["Uu"][uids]
+               if coll is None else user_rows["Uu"])
+    base = (uu_rows * hg if cfg.linear_function else hg) * scale
     in_grad = (base[:, None, :] + lam * enc_rows
                + (0.0 if cfg.asymmetric else gz_pos)) * keep_f[..., None]
     # Uu's gradient reads the pre-update W rows
@@ -1065,23 +1210,23 @@ def _train_step(
         dense = {"b": d_b}
     else:
         dense = _sparse_dense_grads(
-            I, D, items, out_vals, in_grad, bp_pos_vals, neg_sum,
+            n_tbl, D, items if coll is None else coll.own_items(items),
+            out_vals, in_grad, bp_pos_vals, neg_sum,
             pack=pack, asymmetric=cfg.asymmetric, mode=sm)
         dense["b"] = d_b
+    if coll is not None:
+        dense = coll.data_sum_all(dense)
     # every dense gradient is taken: one sweep (one kernel launch)
     dense_adagrad_steps(
         [(params[name], params[name + "_ag"], g) for name, g in dense.items()],
         lr, beta, cfg.using_adagrad, bool(cfg.use_pallas))
-
-    def row_step(name, grad_rows):
-        row_adagrad_delta(params[name], params[name + "_ag"], uids,
-                          grad_rows, live_user, lr, beta, cfg.using_adagrad)
-
-    if cfg.user_factor:
-        row_step("Wu", (hg + lam * params["Wu"][uids]) * w_user[:, None])
-    if cfg.linear_function:
-        row_step("Uu", (lam * params["Uu"][uids] + hg * sum_kept_W)
-                 * w_user[:, None])
+    _user_row_steps(params, uids, w_user, cfg, coll, uids_all, weight_all, {
+        "Wu": (lambda: (hg + lam * (params["Wu"][uids] if coll is None
+                                    else user_rows["Wu"]))
+               * w_user[:, None]) if cfg.user_factor else None,
+        "Uu": (lambda: (lam * uu_rows + hg * sum_kept_W) * w_user[:, None])
+        if cfg.linear_function else None,
+    })
     return params
 
 

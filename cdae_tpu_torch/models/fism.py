@@ -150,10 +150,7 @@ class FISM(RecsysModel):
             dense = (U * I <= 1_500_000_000
                      and cfg.batch_size * I * 40 <= 4_000_000_000)
         if dense and not self.pairwise:
-            R = torch.zeros((U, I), dtype=torch.int8, device=dev)
-            R[self._tensor(data.users, torch.long),
-              self._tensor(data.items, torch.long)] = 1
-            state.aux["dense_R"] = R
+            state.aux["dense_R"] = self._dense_R(data)
         return state
 
     def _padded_rows(self, state: ModelState):
@@ -187,24 +184,32 @@ class FISM(RecsysModel):
         return state.aux["sparse_batches"]
 
     def train_one_iteration(self, state: ModelState, seed: int = 0,
-                            draws: Optional[Sequence[dict]] = None
-                            ) -> ModelState:
+                            draws: Optional[Sequence[dict]] = None,
+                            coll=None) -> ModelState:
         """One epoch, in place: the slab route when ``dense_R`` is
         resident, else the sparse (or pairwise) step over the user
         batches. ``draws[b]`` (optional) holds keyword draws for step b
-        (``u01`` for the slab step, ``neg`` for the others)."""
+        (``u01`` for the slab step, ``neg`` for the others). ``coll``
+        (parallel/trainer.py ShardedFISM): one rank's epoch of the sharded
+        slab on its block of dense_R (``dense_R_block``), x rebuilt for
+        its user block from its P block."""
         params, cfg = state.params, self.cfg
-        if "dense_R" in state.aux and not self.pairwise:
-            R = state.aux["dense_R"]
+        R = state.aux.get("dense_R" if coll is None else "dense_R_block")
+        if R is not None and not self.pairwise:
             uid_mat, w_mat = self._dense_user_batches(state)
+            shard = {} if coll is None else {"coll": coll}
             for j in range(uid_mat.shape[0]):
                 _fism_dense_step(
                     params, R, uid_mat[j], w_mat[j], self._lr,
                     step_seed(seed, state.step, j, 0), cfg=cfg,
-                    loss=self.loss, **(draws[j] if draws is not None else {}))
+                    loss=self.loss, **shard,
+                    **(draws[j] if draws is not None else {}))
             # per-batch refreshes are exact for the batch's users, but P
             # rows they share with other users moved: rebuild every x_u
-            params["x"] = R.to(cfg.dtype) @ params["P"]
+            if coll is None:
+                params["x"] = R.to(cfg.dtype) @ params["P"]
+            else:
+                params["x"] = coll.model_sum(R.to(cfg.dtype) @ params["P"])
         else:
             step = _fism_pair_step if self.pairwise else _fism_step
             for b, batch in enumerate(self._sparse_batches(state)):
@@ -289,13 +294,17 @@ def _fism_adagrad(params, grads, lr: float, cfg: FISMConfig):
     return params
 
 
-def _step_uniforms(seed: int, shape, cfg: FISMConfig, device):
+def _step_uniforms(seed: int, shape, cfg: FISMConfig, device, block=None):
     """(B, I) uniforms in [0, 1) of the slab step: hw_uniform (B1) with
-    ``fast_rng``, else a generator seeded with ``seed``."""
+    ``fast_rng``, else a generator seeded with ``seed``. ``block`` = (row
+    offset, column offset, whole shape): that block of the whole draw."""
+    r0, c0, full = block if block is not None else (0, 0, tuple(shape))
     if cfg.fast_rng:
-        return hw_uniform(seed, tuple(shape), device=device)
+        return hw_uniform(seed, tuple(shape), device=device, row_offset=r0,
+                          col_offset=c0)
     gen = torch.Generator(device=device).manual_seed(int(seed) & _MASK32)
-    return torch.rand(tuple(shape), generator=gen, device=device)
+    u = torch.rand(tuple(full), generator=gen, device=device)
+    return u if block is None else u[r0:r0 + shape[0], c0:c0 + shape[1]]
 
 
 def _fism_step(params, uids, items, mask, lengths, weight, lr: float,
@@ -398,7 +407,7 @@ def _fism_step(params, uids, items, mask, lengths, weight, lr: float,
 
 def _fism_dense_step(params, R, uids, weight, lr: float, seed: int, *,
                      cfg: FISMConfig, loss: Loss,
-                     u01: Optional[torch.Tensor] = None):
+                     u01: Optional[torch.Tensor] = None, coll=None):
     """Full-catalog slab pointwise FISM step (ref fism.hpp:92-166 as
     matmuls), in place. With R's (B, I) rated rows and x the cache, every
     gather and scatter of the sparse step becomes a matmul:
@@ -409,25 +418,51 @@ def _fism_dense_step(params, R, uids, weight, lr: float, seed: int, *,
 
     Negatives are Bernoulli over the complement with num_neg * |R_u|
     expected draws; ``u01`` injects the (B, I) uniforms (default from
-    ``seed``)."""
+    ``seed``).
+
+    ``coll`` (parallel/mesh.py ``Collectives``; None: the single-device
+    step): one rank's step of a sharded slab. ``R`` is the rank's block of
+    dense_R (``coll.batch_rows`` reads it); the step takes its rows of the
+    batch (``uids`` / ``weight`` whole) by its block of P, Q and bi; x and
+    bu are user blocks. Row sums over the item block (lengths, S = gs Q,
+    the x refresh) are completed over
+    'model', the item gradients over 'data' before the one B2 launch, and
+    the user rows go to their owners."""
     dt = params["P"].dtype
+    uids_all, weight_all, block = uids, weight, None
+    if coll is not None:
+        sl = coll.rows(uids.shape[0])
+        uids, weight = uids[sl], weight[sl]
+        block = (sl.start, coll.col_offset, (uids_all.shape[0],
+                                             coll.num_items))
+
+    def msum(t):
+        return t if coll is None else coll.model_sum(t)
+
+    def user_rows(name):
+        if coll is None:
+            return params[name][uids]
+        return coll.gather_users(params[name], uids_all)[sl]
+
     w_user = weight.to(dt)  # (B,)
-    rows = R[uids].to(dt) * w_user[:, None]  # (B, I)
-    I = rows.shape[1]
-    lengths = torch.sum(rows, dim=1)
+    R_rows = R[uids] if coll is None else coll.batch_rows(R, uids_all)
+    rows = R_rows.to(dt) * w_user[:, None]  # (B, I)
+    I = rows.shape[1] if coll is None else coll.num_items
+    lengths = msum(torch.sum(rows, dim=1))
     s_rated, s_unrated = _scales(lengths, cfg.alpha, dt)
     p_neg = torch.clamp(
         cfg.num_neg * lengths / torch.clamp(I - lengths, min=1.0), 0.0, 1.0)
     if u01 is None:
-        u01 = _step_uniforms(seed, rows.shape, cfg, rows.device)
+        u01 = _step_uniforms(seed, rows.shape, cfg, rows.device, block)
     neg_sel = ((1.0 - rows) * (u01 < p_neg[:, None]).to(dt)
                * w_user[:, None])
     touch = rows + neg_sel  # (B, I) instances this step
-    x = params["x"][uids]  # (B, D), exact at batch entry
+    x = user_rows("x")  # (B, D), exact at batch entry
+    bu_u = user_rows("bu")
     base = x @ params["Q"].t()  # (B, I)
     corr = torch.sum(params["P"] * params["Q"], dim=1)  # (I,) p_i . q_i
     scale = torch.where(rows > 0, s_rated[:, None], s_unrated[:, None])
-    pred = (params["bu"][uids][:, None] + params["bi"][None, :]
+    pred = (bu_u[:, None] + params["bi"][None, :]
             + (base - rows * corr[None, :]) * scale)
     labels = torch.where(rows > 0, loss.positive_label, loss.negative_label)
     g = loss.gradient(pred, labels.to(dt)) * touch  # (B, I)
@@ -435,8 +470,14 @@ def _fism_dense_step(params, R, uids, weight, lr: float, seed: int, *,
     lam = cfg.lambda_
     grads = {}
     if cfg.using_bias_term:
-        grads["bu"] = torch.zeros_like(params["bu"]).index_add_(
-            0, uids, torch.sum(g, dim=1) + lam * params["bu"][uids] * w_user)
+        bu_rows = msum(torch.sum(g, dim=1)) + lam * bu_u * w_user
+        if coll is None:
+            grads["bu"] = torch.zeros_like(params["bu"]).index_add_(
+                0, uids, bu_rows)
+        else:
+            own, owned = coll.own_users(uids_all)
+            grads["bu"] = torch.zeros_like(params["bu"]).index_add_(
+                0, own, torch.where(owned, coll.data_gather(bu_rows), 0.0))
         grads["bi"] = (torch.sum(g, dim=0)
                        + lam * params["bi"] * torch.sum(touch, dim=0))
     if cfg.using_factor_term:
@@ -444,16 +485,24 @@ def _fism_dense_step(params, R, uids, weight, lr: float, seed: int, *,
         rated_g = torch.sum(gs * rows, dim=0)  # (I,) self-term weights
         grads["Q"] = (gs.t() @ x - rated_g[:, None] * params["P"]
                       + lam * params["Q"] * touch_i[:, None])
-        S_rows = gs @ params["Q"]  # (B, D)
+        S_rows = msum(gs @ params["Q"])  # (B, D)
         grads["P"] = (rows.t() @ S_rows - rated_g[:, None] * params["Q"]
                       + lam * params["P"] * torch.sum(rows, dim=0)[:, None])
+    if coll is not None:
+        # bu is whole per owner already; the item blocks' grads are partial
+        grads.update(coll.data_sum_all(
+            {k: v for k, v in grads.items() if k != "bu"}))
     _fism_adagrad(params, grads, lr, cfg)
     if cfg.using_factor_term:
         # exact x refresh for the batch's users from the UPDATED P
-        x_new = rows @ params["P"]
-        delta = torch.where(w_user[:, None] > 0, x_new - params["x"][uids],
-                            0.0)
-        params["x"].index_add_(0, uids, delta)
+        x_new = msum(rows @ params["P"])
+        delta = torch.where(w_user[:, None] > 0, x_new - x, 0.0)
+        if coll is None:
+            params["x"].index_add_(0, uids, delta)
+        else:
+            own, owned = coll.own_users(uids_all)
+            params["x"].index_add_(0, own, torch.where(
+                owned[:, None], coll.data_gather(delta), 0.0))
     return params
 
 

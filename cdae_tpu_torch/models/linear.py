@@ -298,12 +298,14 @@ def _fm_forward(params, idx, vals, mean, group_of: Tuple[int, ...]):
 
 
 def _fm_step(params, idx, vals, labels, w, mean, lr, *, cfg, loss,
-             group_of: Tuple[int, ...]):
+             group_of: Tuple[int, ...], coll=None):
     """One minibatch of FactorModel: per-instance contributions with
     per-touch lambda, all from the tables as they were before the step
     (dpred/dv_f = x_f * sum of the other groups' v x), summed by ONE row
     aggregation of ``[contrib_w | contrib_V]`` over the B * F ids, then one
-    zero-init AdaGrad step per table."""
+    zero-init AdaGrad step per table. ``coll`` (a data-parallel sharded
+    step, the tables replicated): the instances are the rank's, and the
+    row sums are completed over 'data' before the AdaGrad step."""
     pred = _fm_forward(params, idx, vals, mean, group_of)
     g = loss.gradient(pred, labels) * w  # (B,)
     touched = (vals != 0).to(vals.dtype) * w[:, None]  # (B, F)
@@ -328,6 +330,8 @@ def _fm_step(params, idx, vals, labels, w, mean, lr, *, cfg, loss,
     contrib = torch.cat(cols, dim=-1)
     acc = _row_sums(params["w"].shape[0], idx.reshape(-1),
                     contrib.reshape(B * F, contrib.shape[-1]))
+    if coll is not None:
+        acc = coll.data_sum(acc)
     if cfg.using_bias_term:
         out["w"], out["w_ag"] = _zero_init_adagrad(
             params["w"], params["w_ag"], acc[:, 0], lr, cfg.using_adagrad)
@@ -453,25 +457,35 @@ def _negmf_dense_step(params, R, uids, weight, mean, lr, *, cfg, loss,
 
 def _negmf_sparse_step(params, users, items, w, rated, lengths, mean, lr, *,
                        cfg, loss, i_off: int, num_items: int, seed: int = 0,
-                       u: Optional[torch.Tensor] = None):
+                       u: Optional[torch.Tensor] = None, coll=None):
     """One NegMF minibatch of B (user, item) positives: num_neg exact
     complement negatives per positive by ``sample_unrated`` over the
     users' padded rated rows (``u`` (B, num_neg) injects its uniforms,
     else the generator seeded with ``seed``); the sentinel id I of an empty
     complement is zero-weighted and clipped. Then one ``_fm_step`` over the
-    B * (num_neg + 1) instances, groups (user, item)."""
+    B * (num_neg + 1) instances, groups (user, item). ``coll`` (a
+    data-parallel sharded step): the whole batch's negatives are drawn,
+    then the rank's rows of the batch take the step."""
     B = users.shape[0]
     I = num_items
     nn = max(cfg.num_neg, 0)
     dev = users.device
-    step_kw = dict(cfg=cfg, loss=loss, group_of=(0, 1))
+    step_kw = dict(cfg=cfg, loss=loss, group_of=(0, 1), coll=coll)
     if nn == 0:
+        if coll is not None:
+            sl = coll.rows(B)
+            users, items, w = users[sl], items[sl], w[sl]
+            B = users.shape[0]
         idx = torch.stack([users, items + i_off], dim=1)
         vals = torch.ones(idx.shape, dtype=cfg.dtype, device=dev)
         labels = torch.full((B,), loss.positive_label, dtype=cfg.dtype,
                             device=dev)
         return _fm_step(params, idx, vals, labels, w, mean, lr, **step_kw)
     neg = sample_unrated(seed, rated, lengths, I, nn, u=u)  # (B, nn)
+    if coll is not None:
+        sl = coll.rows(B)
+        users, items, w, neg = users[sl], items[sl], w[sl], neg[sl]
+        B = users.shape[0]
     neg_label = -1.0 if loss.name in ("LOG", "HINGE") else 0.0
     all_u = users[:, None].expand(B, nn + 1)
     all_i = torch.cat([items[:, None], torch.clamp(neg, 0, I - 1)], dim=1)
@@ -529,8 +543,8 @@ class NegMF(FactorModel):
         return state.aux["device_data"]
 
     def train_one_iteration(self, state: ModelState, seed: int = 0,
-                            perm=None, draws: Optional[Sequence[dict]] = None
-                            ) -> ModelState:
+                            perm=None, draws: Optional[Sequence[dict]] = None,
+                            coll=None) -> ModelState:
         """One epoch, tables replaced in ``state.params``. With ``dense_R``
         resident: the user slabs in fixed order, slab j's uniforms from
         ``draws[j]["u01"]`` or the step seed. Else the instance epoch: the
@@ -539,7 +553,8 @@ class NegMF(FactorModel):
         weight 0; step b draws each instance's num_neg negatives by
         ``sample_unrated`` from ``draws[b]["u"]`` (B, num_neg) or the step
         seed, then takes one ``_fm_step`` over the B * (num_neg + 1)
-        instances."""
+        instances. ``coll`` (parallel/trainer.py ShardedNegMF, the instance
+        epoch): one rank's epoch, each step on its rows of the batch."""
         i_off = state.aux["instances"].group_dims[0]
         mean = state.aux["global_mean"]
         if "dense_R" in state.aux:
@@ -563,6 +578,7 @@ class NegMF(FactorModel):
                 mean, self._lr, cfg=self.cfg, loss=self.loss, i_off=i_off,
                 num_items=state.num_items,
                 seed=step_seed(seed, state.step, b, 1),
+                **({} if coll is None else {"coll": coll}),
                 **(draws[b] if draws is not None else {}))
         state.step += 1
         return state

@@ -171,10 +171,13 @@ def _init_mf_params(gen: torch.Generator, U: int, I: int, D: int, dt,
     }
 
 
-def _adagrad_apply(params, grads, cfg: MFConfig):
+def _adagrad_apply(params, grads, cfg: MFConfig, coll=None):
     """One dense accumulate-then-apply AdaGrad step over every table of
     ``grads``, in place: one launch of the adagrad_update kernel (B2) when
-    ``use_pallas`` is on."""
+    ``use_pallas`` is on. With ``coll`` (a sharded step) gradients summed
+    from the rank's rows alone are summed over 'data' first."""
+    if coll is not None and not coll.gather_contribs:
+        grads = coll.data_sum_all(grads)
     dense_adagrad_steps(
         [(params[name], params[name + "_ag"], g) for name, g in grads.items()],
         cfg.learn_rate, cfg.beta, cfg.using_adagrad,
@@ -187,10 +190,13 @@ def _use_mxu_gather(cfg: MFConfig) -> bool:
     return cfg.gather_mode == "mxu"
 
 
-def _gather_factor_bias(factors, bias, idx, cfg: MFConfig):
+def _gather_factor_bias(factors, bias, idx, cfg: MFConfig, coll=None):
     """(rows, bias) of the tables at ``idx``: plain row indexing, or with
     ``gather_mode="mxu"`` one B9 gather of ``[factors | bias]`` (the bias
-    rides as an extra column)."""
+    rides as an extra column). With ``coll`` and the item tables split over
+    'model', item rows gathered from their owners (``coll.gather_items``)."""
+    if coll is not None and coll.items_split:
+        return coll.gather_items(factors, idx), coll.gather_items(bias, idx)
     if _use_mxu_gather(cfg):
         D = factors.shape[1]
         tbl = torch.cat([factors, bias[:, None]], dim=1).to(torch.float32)
@@ -224,14 +230,48 @@ def _pointwise_contribs(uv_u, iv_i, ub_u, ib_i, labels, w, cfg: MFConfig,
     return d_uv, d_iv, d_ub, d_ib
 
 
-def _pointwise_grads(params, u, i, labels, w, cfg: MFConfig, loss: Loss):
+def _num_items(params, coll) -> int:
+    """The catalog size of a step: the item table's rows, or a sharded
+    step's whole catalog."""
+    return params["iv"].shape[0] if coll is None else coll.num_items
+
+
+def _rows_of(coll, B: int, *xs):
+    """A sharded step's rows ``coll.rows(B)`` of each batch array (None
+    stays None); without ``coll`` the arrays themselves."""
+    if coll is None:
+        return xs
+    sl = coll.rows(B)
+    return tuple(None if x is None else x[sl] for x in xs)
+
+
+def _row_aggregate(n: int, idx, vals, sm: str, coll=None, items=False):
+    """(n, C) sums of ``vals`` rows at ``idx`` (one B8 plan and reduce
+    where the scatter mode runs B8). With ``coll`` in its contribution-
+    gathering form (ShardedMFTP) the rows of every 'data' rank are
+    all-gathered first, and item ids sum into this rank's own item block
+    only."""
+    if coll is not None and coll.gather_contribs:
+        idx = coll.data_gather(idx)
+        vals = coll.data_gather(vals)
+    if coll is not None and items:
+        idx = coll.own_items(idx)
+    return scatter_add_rows(
+        torch.zeros((n, vals.shape[1]), dtype=vals.dtype,
+                    device=vals.device),
+        idx, vals, mode=sm, plan=row_plan(idx, n, sm))
+
+
+def _pointwise_grads(params, u, i, labels, w, cfg: MFConfig, loss: Loss,
+                     coll=None):
     """Per-instance contributions of the PMF/IMF rule summed into full
     tables: one aggregation over the user ids and one over the item ids,
     each with its bias as an extra value column (B8's modes: a plan each).
     The rows come from one gather per table pair (B9's with
     ``gather_mode="mxu"``)."""
     uv_u, ub_u = _gather_factor_bias(params["uv"], params["ub"], u, cfg)
-    iv_i, ib_i = _gather_factor_bias(params["iv"], params["ib"], i, cfg)
+    iv_i, ib_i = _gather_factor_bias(params["iv"], params["ib"], i, cfg,
+                                     coll)
     d_uv, d_iv, d_ub, d_ib = _pointwise_contribs(uv_u, iv_i, ub_u, ib_i,
                                                  labels, w, cfg, loss)
     grads = {}
@@ -240,24 +280,26 @@ def _pointwise_grads(params, u, i, labels, w, cfg: MFConfig, loss: Loss):
         n, D = table.shape
         vals = (torch.cat([d_f, d_b[:, None]], dim=1)
                 if cfg.using_bias_term else d_f)
-        acc = scatter_add_rows(
-            torch.zeros((n, vals.shape[1]), dtype=vals.dtype,
-                        device=vals.device),
-            idx, vals, mode=cfg.scatter_mode,
-            plan=row_plan(idx, n, cfg.scatter_mode))
+        acc = _row_aggregate(n, idx, vals, cfg.scatter_mode, coll,
+                             items=side == "i")
         grads[side + "v"] = acc[:, :D].contiguous()
         if cfg.using_bias_term:
             grads[side + "b"] = acc[:, D].contiguous()
     return grads
 
 
-def _pointwise_apply(params, u, i, labels, w, cfg: MFConfig, loss: Loss):
+def _pointwise_apply(params, u, i, labels, w, cfg: MFConfig, loss: Loss,
+                     coll=None):
     """One pointwise minibatch update, in place: full-table
     accumulate-then-apply AdaGrad, or with ``row_update`` the touched rows'
-    delta AdaGrad (B8's per-row sums where the scatter mode runs B8)."""
-    if not _use_row_update(cfg, params["iv"].shape[0]):
+    delta AdaGrad (B8's per-row sums where the scatter mode runs B8). With
+    ``coll`` (a sharded step; the instances are the rank's rows) the dense
+    apply, its gradients completed over 'data'."""
+    if coll is not None or not _use_row_update(cfg, params["iv"].shape[0]):
         return _adagrad_apply(
-            params, _pointwise_grads(params, u, i, labels, w, cfg, loss), cfg)
+            params,
+            _pointwise_grads(params, u, i, labels, w, cfg, loss, coll), cfg,
+            coll)
     d_uv, d_iv, d_ub, d_ib = _pointwise_contribs(
         params["uv"][u], params["iv"][i], params["ub"][u], params["ib"][i],
         labels, w, cfg, loss)
@@ -303,7 +345,7 @@ def _pair_contribs(uv_u, iv_i, iv_j, ib_i, ib_j, w, cfg: MFConfig,
 
 
 def _pairwise_grads(params, u, i, j, w, cfg: MFConfig, loss: Loss,
-                    rank_weight=None, update_bias=True):
+                    rank_weight=None, update_bias=True, coll=None):
     """Pair contributions of (u, i) against nn negatives j (B, nn), summed
     into full tables: B user rows, and one aggregation of the B positive
     and B*nn negative item rows (bias as an extra value column). The
@@ -311,7 +353,7 @@ def _pairwise_grads(params, u, i, j, w, cfg: MFConfig, loss: Loss,
     another (B9's with ``gather_mode="mxu"``)."""
     B = u.shape[0]
     iv_rows, ib_rows = _gather_factor_bias(
-        params["iv"], params["ib"], torch.cat([i, j.reshape(-1)]), cfg)
+        params["iv"], params["ib"], torch.cat([i, j.reshape(-1)]), cfg, coll)
     iv_i, ib_i = iv_rows[:B], ib_rows[:B]
     iv_j = iv_rows[B:].reshape(B, -1, iv_rows.shape[-1])
     ib_j = ib_rows[B:].reshape(B, -1)
@@ -327,14 +369,11 @@ def _pairwise_grads(params, u, i, j, w, cfg: MFConfig, loss: Loss,
     sm = cfg.scatter_mode
     item_ids = torch.cat([i, j.reshape(-1)])
     # item and user sums have different ids: a plan each (B8's modes)
-    acc = scatter_add_rows(
-        torch.zeros((I, C), dtype=pos_vals.dtype, device=pos_vals.device),
-        item_ids, torch.cat([pos_vals, neg_vals.reshape(-1, C)]), mode=sm,
-        plan=row_plan(item_ids, I, sm))
+    acc = _row_aggregate(I, item_ids,
+                         torch.cat([pos_vals, neg_vals.reshape(-1, C)]), sm,
+                         coll, items=True)
     grads = {
-        "uv": scatter_add_rows(torch.zeros_like(params["uv"]), u, d_uv_rows,
-                               mode=sm,
-                               plan=row_plan(u, params["uv"].shape[0], sm)),
+        "uv": _row_aggregate(params["uv"].shape[0], u, d_uv_rows, sm, coll),
         "iv": acc[:, :D].contiguous(),
     }
     if with_bias:
@@ -343,17 +382,20 @@ def _pairwise_grads(params, u, i, j, w, cfg: MFConfig, loss: Loss,
 
 
 def _pairwise_apply(params, u, i, j, w, cfg: MFConfig, loss: Loss,
-                    rank_weight=None, update_bias=True):
+                    rank_weight=None, update_bias=True, coll=None):
     """One pairwise minibatch update, in place: full-table
     accumulate-then-apply AdaGrad, or with ``row_update`` the touched rows'
     delta AdaGrad (duplicates within a batch see a sequential accumulator;
-    B8's per-row sums where the scatter mode runs B8)."""
-    if not _use_row_update(cfg, params["iv"].shape[0]):
+    B8's per-row sums where the scatter mode runs B8). With ``coll`` (a
+    sharded step; the pairs are the rank's rows) the dense apply, its
+    gradients completed over 'data'."""
+    if coll is not None or not _use_row_update(cfg, params["iv"].shape[0]):
         return _adagrad_apply(
             params,
             _pairwise_grads(params, u, i, j, w, cfg, loss,
-                            rank_weight=rank_weight, update_bias=update_bias),
-            cfg,
+                            rank_weight=rank_weight, update_bias=update_bias,
+                            coll=coll),
+            cfg, coll,
         )
     d_uv_rows, pos_vals, neg_vals, with_bias = _pair_contribs(
         params["uv"][u], params["iv"][i], params["iv"][j],
@@ -381,41 +423,80 @@ def _pairwise_apply(params, u, i, j, w, cfg: MFConfig, loss: Loss,
 # ----------------------------------------------------------------- slabs ----
 
 def _dense_mf_grads(params, rows, labels, w_mat, uids, cfg: MFConfig,
-                    loss: Loss):
+                    loss: Loss, coll=None, uids_all=None):
     """The slab form of ``_pointwise_grads``: the (B, I) touch matrix
     ``w_mat`` carries per-(user, item) multiplicities and every gather and
     scatter is a matmul (ref pmf.hpp:80-104 / imf.hpp:86-115). Returns
-    (item-table grads, user-row grads), all from the pre-update tables."""
+    (item-table grads, user-row grads), all from the pre-update tables.
+    With ``coll`` (a sharded slab: the rank's rows of the batch
+    ``uids_all`` by its item block) the user rows come from their owners
+    and the row sums over the item block are completed over 'model'; the
+    item grads are the rank's rows' part."""
     lam2 = 2.0 * cfg.lambda_
-    uv_u = params["uv"][uids]  # (B, D)
-    pred = (params["ub"][uids][:, None] + params["ib"][None, :]
+    if coll is None:
+        uv_u, ub_u = params["uv"][uids], params["ub"][uids]  # (B, D), (B,)
+    else:
+        sl = coll.rows(uids_all.shape[0])
+        uv_u = coll.gather_users(params["uv"], uids_all)[sl]
+        ub_u = coll.gather_users(params["ub"], uids_all)[sl]
+    pred = (ub_u[:, None] + params["ib"][None, :]
             + uv_u @ params["iv"].t())
     # the truth slab, then one gradient pass (gradients are elementwise)
     truth = torch.where(rows > 0, labels,
                         torch.as_tensor(loss.negative_label, dtype=pred.dtype,
                                         device=pred.device))
     g = loss.gradient(pred, truth) * w_mat
-    row_touch = torch.sum(w_mat, dim=1)  # (B,) touches per user
+    def msum(x):
+        return x if coll is None else coll.model_sum(x)
+
+    row_touch = msum(torch.sum(w_mat, dim=1))  # (B,) touches per user
     col_touch = torch.sum(w_mat, dim=0)  # (I,)
     grads = {"iv": g.t() @ uv_u + lam2 * col_touch[:, None] * params["iv"]}
-    row_grads = {"uv": g @ params["iv"] + lam2 * row_touch[:, None] * uv_u}
+    row_grads = {"uv": msum(g @ params["iv"])
+                 + lam2 * row_touch[:, None] * uv_u}
     if cfg.using_bias_term:
         grads["ib"] = torch.sum(g, dim=0) + lam2 * col_touch * params["ib"]
-        row_grads["ub"] = (torch.sum(g, dim=1)
-                           + lam2 * row_touch * params["ub"][uids])
+        row_grads["ub"] = (msum(torch.sum(g, dim=1))
+                           + lam2 * row_touch * ub_u)
     return grads, row_grads
 
 
-def _dense_row_apply(params, row_grads, uids, w_user, cfg: MFConfig):
+def _dense_row_apply(params, row_grads, uids, w_user, cfg: MFConfig,
+                     coll=None, uids_all=None, weight_all=None):
     """Per-user-row AdaGrad by the duplicate-safe delta-add (the slab's
     padding rows repeat uid 0 at weight 0); each row's sums are B8's where
-    the scatter mode runs B8."""
+    the scatter mode runs B8. With ``coll`` the rows' gradients are
+    gathered over 'data' and each rank updates its own user block."""
     for name, g in row_grads.items():
-        live = (w_user > 0)[:, None] if g.dim() == 2 else (w_user > 0)
-        row_adagrad_delta(params[name], params[name + "_ag"], uids, g, live,
+        if coll is not None:
+            rows, owned = coll.own_users(uids_all)
+            live = (weight_all > 0) & owned
+            g, idx = coll.data_gather(g), rows
+        else:
+            live, idx = w_user > 0, uids
+        live = live[:, None] if g.dim() == 2 else live
+        row_adagrad_delta(params[name], params[name + "_ag"], idx, g, live,
                           cfg.learn_rate, cfg.beta, cfg.using_adagrad,
                           mode=cfg.scatter_mode)
     return params
+
+
+def _slab_rows(coll, R, uids, weight, dt):
+    """A slab step's (uids, weight, rows, lengths, block) of the batch:
+    the whole batch, or a sharded step's rows of it by its block of R
+    (``coll.batch_rows``; lengths completed over 'model'; ``block`` the
+    draw block for ``_uniforms``)."""
+    w_user = weight.to(dt)
+    if coll is None:
+        rows = R[uids].to(dt) * w_user[:, None]
+        return uids, w_user, rows, torch.sum(rows, dim=1), None
+    B_all = uids.shape[0]
+    sl = coll.rows(B_all)
+    rows = coll.batch_rows(R, uids).to(dt) * w_user[sl][:, None]
+    uids, w_user = uids[sl], w_user[sl]
+    lengths = coll.model_sum(torch.sum(rows, dim=1))
+    return uids, w_user, rows, lengths, (sl.start, coll.col_offset,
+                                         (B_all, coll.num_items))
 
 
 def _user_chunks(B: int, per_user: int):
@@ -427,15 +508,21 @@ def _user_chunks(B: int, per_user: int):
 
 # ----------------------------------------------------------------- draws ----
 
-def _uniforms(seed: int, shape, cfg: MFConfig, device) -> torch.Tensor:
+def _uniforms(seed: int, shape, cfg: MFConfig, device,
+              block=None) -> torch.Tensor:
     """(rows, cols) float32 uniforms in [0, 1): ``hw_uniform`` (B1; its
     plain version with ``use_pallas`` off) with ``fast_rng``, else a
-    generator seeded with ``seed``."""
+    generator seeded with ``seed``. ``block`` = (row offset, column offset,
+    whole shape): ``shape`` is that block of the whole draw (a sharded
+    step's), which B1 draws alone and a generator cuts from the whole."""
+    r0, c0, full = block if block is not None else (0, 0, shape)
     if cfg.fast_rng:
         draw = hw_uniform if cfg.use_pallas else hw_uniform_plain
-        return draw(seed, tuple(shape), device=device)
+        return draw(seed, tuple(shape), device=device, row_offset=r0,
+                    col_offset=c0)
     gen = torch.Generator(device=device).manual_seed(int(seed) & _MASK32)
-    return torch.rand(tuple(shape), generator=gen, device=device)
+    u = torch.rand(tuple(full), generator=gen, device=device)
+    return u if block is None else u[r0:r0 + shape[0], c0:c0 + shape[1]]
 
 
 def _randint(seed: int, shape, maxval, cfg: MFConfig, device,
@@ -507,10 +594,7 @@ class _MFBase(RecsysModel):
             dense = (self.dense_auto and U * I <= _DENSE_MAX_CELLS
                      and cfg.batch_size * I * 40 <= _DENSE_MAX_SLAB_BYTES)
         if dense:
-            R = torch.zeros((U, I), dtype=torch.int8, device=self.device)
-            R[self._tensor(data.users, torch.long),
-              self._tensor(data.items, torch.long)] = 1
-            state.aux["dense_R"] = R
+            state.aux["dense_R"] = self._dense_R(data)
             if self.uses_ratings:
                 # the host build keeps the first occurrence of a pair
                 state.aux["dense_ratings"] = self._tensor(
@@ -543,25 +627,29 @@ class _MFBase(RecsysModel):
 
     # ------------------------------------------------------------- train ----
     def train_one_iteration(self, state: ModelState, seed: int = 0,
-                            perm=None, draws: Optional[Sequence[dict]] = None
-                            ) -> ModelState:
+                            perm=None, draws: Optional[Sequence[dict]] = None,
+                            coll=None) -> ModelState:
         """One epoch, in place. With ``dense_R`` resident: the user slabs in
         fixed order. Else the instance epoch: shuffle the instances
         (``perm``, or a permutation from the seed of (``seed``,
         ``state.step``)), pad to whole batches of ``batch_size`` with
         weight-0 instances, and run one ``_step`` per batch. ``draws[b]``
-        (optional) holds keyword draws for step (or slab) b."""
+        (optional) holds keyword draws for step (or slab) b. ``coll``
+        (parallel/trainer.py): one rank's epoch of a sharded run -- the same
+        batches and draws, each step given the collectives (a slab reads
+        the rank's block of dense_R, ``dense_R_block``)."""
         cfg = self.cfg
-        if "dense_R" in state.aux:
-            R = state.aux["dense_R"]
-            ratings = state.aux.get("dense_ratings", R)
+        shard = {} if coll is None else {"coll": coll}
+        R = state.aux.get("dense_R" if coll is None else "dense_R_block")
+        if R is not None:
+            ratings = state.aux.get("dense_ratings", R) if coll is None else R
             uid_mat, w_mat = self._dense_user_batches(state)
             for j in range(uid_mat.shape[0]):
                 keys = tuple(step_seed(seed, state.step, j, k)
                              for k in (1, 2))
                 self._dense_step(
                     state.params, R, ratings, uid_mat[j], w_mat[j], keys,
-                    cfg=cfg, loss=self.loss,
+                    cfg=cfg, loss=self.loss, **shard,
                     **(draws[j] if draws is not None else {}))
             state.step += 1
             return state
@@ -591,7 +679,7 @@ class _MFBase(RecsysModel):
                 state.params, u, items[sel], ratings[sel],
                 w_all[b * bs:(b + 1) * bs],
                 pad_items[u] if needs_rated else None, lengths[u], keys,
-                *(e[u] for e in extras), cfg=cfg, loss=self.loss,
+                *(e[u] for e in extras), cfg=cfg, loss=self.loss, **shard,
                 **(draws[b] if draws is not None else {}),
             )
         state.step += 1
@@ -632,18 +720,23 @@ class PMF(_MFBase):
 
     @staticmethod
     def _step(params, u, i, r, w, rated, lengths, keys, *extras,
-              cfg: MFConfig, loss: Loss):
-        return _pointwise_apply(params, u, i, r, w, cfg, loss)
+              cfg: MFConfig, loss: Loss, coll=None):
+        u, i, r, w = _rows_of(coll, u.shape[0], u, i, r, w)
+        return _pointwise_apply(params, u, i, r, w, cfg, loss, coll)
 
     @staticmethod
     def _dense_step(params, R, ratings, uids, weight, keys, *, cfg: MFConfig,
-                    loss: Loss):
-        w_user = weight.to(params["uv"].dtype)
-        rows = R[uids].to(params["uv"].dtype) * w_user[:, None]
+                    loss: Loss, coll=None):
+        """One slab over the observed ratings; ``coll``: a sharded slab
+        (``R`` / ``ratings`` the rank's column blocks)."""
+        uids_all, weight_all = uids, weight
+        uids, w_user, rows, _, _ = _slab_rows(coll, R, uids, weight,
+                                              params["uv"].dtype)
         grads, row_grads = _dense_mf_grads(params, rows, ratings[uids], rows,
-                                           uids, cfg, loss)
-        _adagrad_apply(params, grads, cfg)
-        return _dense_row_apply(params, row_grads, uids, w_user, cfg)
+                                           uids, cfg, loss, coll, uids_all)
+        _adagrad_apply(params, grads, cfg, coll)
+        return _dense_row_apply(params, row_grads, uids, w_user, cfg, coll,
+                                uids_all, weight_all)
 
 
 class IMF(_MFBase):
@@ -657,22 +750,27 @@ class IMF(_MFBase):
 
     @staticmethod
     def _step(params, u, i, r, w, rated, lengths, keys, *extras,
-              cfg: MFConfig, loss: Loss, neg: Optional[torch.Tensor] = None):
+              cfg: MFConfig, loss: Loss, neg: Optional[torch.Tensor] = None,
+              coll=None):
         """One minibatch: each positive and num_neg exact complement draws
         (``neg`` (B, num_neg) injects them; default ``sample_unrated`` from
-        the step seed k1); the sentinel id I gets weight 0."""
-        B = u.shape[0]
-        I = params["iv"].shape[0]
+        the step seed k1); the sentinel id I gets weight 0. With ``coll``
+        (a sharded step) the whole batch's draws are taken, then the
+        rank's rows of them."""
+        I = _num_items(params, coll)
         nn = max(cfg.num_neg, 0)
         if nn == 0:
+            u, i, r, w = _rows_of(coll, u.shape[0], u, i, r, w)
             return _pointwise_apply(
                 params, u, i, torch.full_like(r, loss.positive_label), w,
-                cfg, loss)
+                cfg, loss, coll)
         if neg is None:
             neg = sample_unrated(keys[0], rated, lengths, I, nn,
                                  hw=cfg.fast_rng,
                                  use_kernel=bool(cfg.use_pallas))
         neg = torch.as_tensor(neg, device=u.device).long()
+        u, i, w, neg = _rows_of(coll, u.shape[0], u, i, w, neg)
+        B = u.shape[0]
         all_u = u[:, None].expand(B, nn + 1)
         all_i = torch.cat([i[:, None], neg], dim=1)
         labels = torch.cat([
@@ -682,31 +780,36 @@ class IMF(_MFBase):
         return _pointwise_apply(
             params, all_u.reshape(-1),
             torch.clamp(all_i, 0, I - 1).reshape(-1), labels.reshape(-1),
-            all_w.reshape(-1), cfg, loss)
+            all_w.reshape(-1), cfg, loss, coll)
 
     @staticmethod
     def _dense_step(params, R, ratings, uids, weight, keys, *, cfg: MFConfig,
-                    loss: Loss, u01: Optional[torch.Tensor] = None):
+                    loss: Loss, u01: Optional[torch.Tensor] = None,
+                    coll=None):
         """One slab: Bernoulli complement negatives with p = num_neg * |R_u|
         / (I - |R_u|) (``u01`` (B, I) injects the uniforms; default B1's
-        with ``fast_rng``, else a generator, from the step seed k1)."""
+        with ``fast_rng``, else a generator, from the step seed k1).
+        ``coll``: a sharded slab (``R`` the rank's column block; the
+        uniforms the block of the whole slab's, B1 at its offsets)."""
         dt = params["uv"].dtype
-        w_user = weight.to(dt)
-        rows = R[uids].to(dt) * w_user[:, None]
-        I = rows.shape[1]
-        lengths = torch.sum(rows, dim=1)
+        uids_all, weight_all = uids, weight
+        uids, w_user, rows, lengths, block = _slab_rows(coll, R, uids,
+                                                        weight, dt)
+        I = rows.shape[1] if coll is None else coll.num_items
         p_neg = torch.clamp(
             cfg.num_neg * lengths / torch.clamp(I - lengths, min=1.0),
             0.0, 1.0)
         if u01 is None:
-            u01 = _uniforms(keys[0], rows.shape, cfg, rows.device)
+            u01 = _uniforms(keys[0], rows.shape, cfg, rows.device, block)
         neg_sel = ((1.0 - rows) * (u01 < p_neg[:, None]).to(dt)
                    * w_user[:, None])
         labels = torch.full_like(rows, loss.positive_label)
         grads, row_grads = _dense_mf_grads(params, rows, labels,
-                                           rows + neg_sel, uids, cfg, loss)
-        _adagrad_apply(params, grads, cfg)
-        return _dense_row_apply(params, row_grads, uids, w_user, cfg)
+                                           rows + neg_sel, uids, cfg, loss,
+                                           coll, uids_all)
+        _adagrad_apply(params, grads, cfg, coll)
+        return _dense_row_apply(params, row_grads, uids, w_user, cfg, coll,
+                                uids_all, weight_all)
 
 
 class BPR(_MFBase):
@@ -730,20 +833,23 @@ class BPR(_MFBase):
 
     @staticmethod
     def _step(params, u, i, r, w, rated, lengths, keys, *extras,
-              cfg: MFConfig, loss: Loss, neg: Optional[torch.Tensor] = None):
+              cfg: MFConfig, loss: Loss, neg: Optional[torch.Tensor] = None,
+              coll=None):
         """One minibatch of pairs against max(num_neg, 1) exact complement
-        draws (``neg`` injects them; default ``sample_unrated`` from k1)."""
-        I = params["iv"].shape[0]
+        draws (``neg`` injects them; default ``sample_unrated`` from k1).
+        With ``coll``: the whole batch's draws, then the rank's rows."""
+        I = _num_items(params, coll)
         nn = max(cfg.num_neg, 1)
         if neg is None:
             neg = sample_unrated(keys[0], rated, lengths, I, nn,
                                  hw=cfg.fast_rng,
                                  use_kernel=bool(cfg.use_pallas))
         neg = torch.as_tensor(neg, device=u.device).long()
+        u, i, w, neg = _rows_of(coll, u.shape[0], u, i, w, neg)
         # the sentinel id I (empty complement) zero-weights its pairs
         pair_w = w[:, None] * (neg < I).to(w.dtype)
         return _pairwise_apply(params, u, i, torch.clamp(neg, 0, I - 1),
-                               pair_w, cfg, loss)
+                               pair_w, cfg, loss, coll=coll)
 
     @staticmethod
     def _dense_step(params, R, ratings, uids, weight, keys, *, cfg: MFConfig,
@@ -881,34 +987,36 @@ class WARP(_MFBase):
 
     @staticmethod
     def _step(params, u, i, r, w, rated, lengths, keys, *extras,
-              cfg: MFConfig, loss: Loss, **draws):
+              cfg: MFConfig, loss: Loss, coll=None, **draws):
         """One minibatch: with the rated mask threaded in, the pool path
         (``warp_pool``) or the dense path; without it, the pool path on the
-        CSR rows or the scan path."""
+        CSR rows or the scan path. ``coll``: a sharded step (each path
+        takes the rank's rows of the whole batch's draws)."""
+        kw = dict(cfg=cfg, loss=loss, coll=coll, **draws)
         if extras:
             if cfg.warp_pool:
                 return WARP._pool_path(params, u, i, w, lengths, keys,
-                                       extras[0], cfg=cfg, loss=loss, **draws)
+                                       extras[0], **kw)
             return WARP._dense_path(params, u, i, w, lengths, keys,
-                                    extras[0], cfg=cfg, loss=loss, **draws)
+                                    extras[0], **kw)
         if cfg.warp_pool:
             return WARP._pool_path(params, u, i, w, lengths, keys, None,
-                                   rated=rated, cfg=cfg, loss=loss, **draws)
-        return WARP._scan_path(params, u, i, w, rated, lengths, keys,
-                               cfg=cfg, loss=loss, **draws)
+                                   rated=rated, **kw)
+        return WARP._scan_path(params, u, i, w, rated, lengths, keys, **kw)
 
     @staticmethod
     def _rank_weighted_apply(params, u, i, j, w, lengths, cnt, found,
-                             cfg: MFConfig, loss: Loss):
+                             cfg: MFConfig, loss: Loss, coll=None):
         """The pair update of every route: rank weight l[items_left / cnt],
         pairs weighted by ``found``; ub and ib never update (ref
         warp.hpp:90-117 has those updates commented out)."""
-        I = params["iv"].shape[0]
+        I = _num_items(params, coll)
         items_left = torch.clamp(I - lengths, min=1)
         rw = _warp_harmonic(I, params["iv"].device)[
             torch.clamp(items_left[:, None] // cnt, 0, I - 1).long()]
         return _pairwise_apply(params, u, i, j.long(), w[:, None] * found,
-                               cfg, loss, rank_weight=rw, update_bias=False)
+                               cfg, loss, rank_weight=rw, update_bias=False,
+                               coll=coll)
 
     @staticmethod
     def _geometric_counts(p, u1, T):
@@ -925,19 +1033,29 @@ class WARP(_MFBase):
     def _dense_path(params, u, i, w, lengths, keys, mask_rows, *,
                     cfg: MFConfig, loss: Loss, sel_seed: Optional[int] = None,
                     u1: Optional[torch.Tensor] = None,
-                    v: Optional[torch.Tensor] = None):
+                    v: Optional[torch.Tensor] = None, coll=None):
         """One WARP step from the full score rows. ``keys`` = (k1, k2, ...),
         the step seeds of the count uniforms and of the picks. Injected
         draws replace them: ``sel_seed`` (B7's int32 seed, default k2),
         ``u1`` ((B, nn) uniforms in [1e-7, 1), default from k1) and ``v``
         ((B, nn) ranks in [0, max(nviol, 1)) of the picks on the cumsum
-        route, default from k2)."""
+        route, default from k2). ``coll`` (a data-parallel sharded step,
+        the item table whole): the rank's rows, B7 at their row offset,
+        the count uniforms and ranks cut from the whole batch's draws."""
         I = params["iv"].shape[0]
-        B = u.shape[0]
+        B_all = u.shape[0]
         nn = max(cfg.num_neg, 1)
         T = max(cfg.num_tries, 1)
         dev = params["iv"].device
         k1, k2 = keys[0], keys[1]
+        r0 = 0
+        if coll is not None:
+            r0 = coll.rows(B_all).start
+            if u1 is None:
+                u1 = _count_uniforms(k1, (B_all, nn), cfg, dev)
+            u, i, w, lengths, mask_rows, u1 = _rows_of(
+                coll, B_all, u, i, w, lengths, mask_rows, u1)
+        B = u.shape[0]
         uv_u = params["uv"][u]
         use_kernel = bool(cfg.use_pallas)
         if use_kernel:
@@ -945,7 +1063,7 @@ class WARP(_MFBase):
             yui = params["ib"][i] + torch.sum(uv_u * params["iv"][i], dim=-1)
             nviol, j = warp_violator_select(
                 k2 if sel_seed is None else sel_seed, uv_u, params["iv"],
-                params["ib"], yui - 1.0, mask_rows, nn,
+                params["ib"], yui - 1.0, mask_rows, nn, row_offset=r0,
             )
         else:
             scores = uv_u @ params["iv"].t() + params["ib"][None, :]
@@ -960,6 +1078,12 @@ class WARP(_MFBase):
         found = found & (nviol[:, None] > 0)
         if not use_kernel:
             # the (v+1)-th violator: first column whose running count > v
+            if v is None and coll is not None:
+                # the whole batch's draw at this rank's rows' ranges
+                mx = torch.ones((B_all, 1), dtype=nviol.dtype, device=dev)
+                mx[r0:r0 + B] = torch.clamp(nviol, min=1)[:, None]
+                v = _randint(k2, (B_all, nn), mx, cfg, dev,
+                             salt=0x5D1F)[r0:r0 + B]
             if v is None:
                 v = _randint(k2, (B, nn), torch.clamp(nviol, min=1)[:, None],
                              cfg, dev, salt=0x5D1F)
@@ -968,14 +1092,14 @@ class WARP(_MFBase):
                                    right=True)
             j = torch.clamp(j, 0, I - 1)
         return WARP._rank_weighted_apply(params, u, i, j, w, lengths, cnt,
-                                         found, cfg, loss)
+                                         found, cfg, loss, coll)
 
     @staticmethod
     def _pool_path(params, u, i, w, lengths, keys, mask_rows, *,
                    cfg: MFConfig, loss: Loss, rated=None,
                    pool: Optional[torch.Tensor] = None,
                    u1: Optional[torch.Tensor] = None,
-                   noise: Optional[torch.Tensor] = None):
+                   noise: Optional[torch.Tensor] = None, coll=None):
         """Pooled-candidate rejection process (``warp_pool`` = P): one
         shared pool of P uniform ids a step (``pool``, default from k1);
         cnt ~ Geometric(p^) with p^ the violator share of the instance's
@@ -984,13 +1108,24 @@ class WARP(_MFBase):
         noise (``noise`` (B, nn, P), default from k3). Pool membership
         comes from ``mask_rows`` (the step users' rows of the rated mask)
         or else from the padded CSR ``rated`` rows (``is_rated``): the same
-        truth table, so the same update."""
+        truth table, so the same update. ``coll`` (a data-parallel sharded
+        step, the item table whole): the rank's rows of the whole batch's
+        draws."""
         I = params["iv"].shape[0]
         B = u.shape[0]
         nn = max(cfg.num_neg, 1)
         T = max(cfg.num_tries, 1)
         P = int(cfg.warp_pool)
         dev = params["iv"].device
+        if coll is not None:
+            if u1 is None:
+                u1 = _count_uniforms(keys[1], (B, nn), cfg, dev)
+            if noise is None:
+                noise = _uniforms(keys[2], (B, nn * P), cfg,
+                                  dev).reshape(B, nn, P)
+            u, i, w, lengths, mask_rows, rated, u1, noise = _rows_of(
+                coll, B, u, i, w, lengths, mask_rows, rated, u1, noise)
+            B = u.shape[0]
         uv_u = params["uv"][u]
         yui = params["ib"][i] + torch.sum(uv_u * params["iv"][i], dim=-1)
         if pool is None:
@@ -1017,38 +1152,52 @@ class WARP(_MFBase):
         masked = torch.where(viol[:, None, :], noise, -1.0)
         j = pool[torch.argmax(masked, dim=2)]  # (B, nn)
         return WARP._rank_weighted_apply(params, u, i, j, w, lengths, cnt,
-                                         found, cfg, loss)
+                                         found, cfg, loss, coll)
 
     @staticmethod
     def _scan_path(params, u, i, w, rated, lengths, keys, *, cfg: MFConfig,
-                   loss: Loss, cand: Optional[torch.Tensor] = None):
+                   loss: Loss, cand: Optional[torch.Tensor] = None,
+                   coll=None):
         """num_tries complement candidates per (instance, slot) (``cand``
         (B, nn * num_tries) injects them, the sentinel I included; default
-        ``sample_unrated`` from k1) and the first violator among them."""
-        I = params["iv"].shape[0]
-        B = u.shape[0]
+        ``sample_unrated`` from k1) and the first violator among them.
+        ``coll`` (a sharded step): the rank's rows of the whole batch's
+        candidates, item rows from their owners where the item table is
+        split (ShardedMFTP)."""
+        I = _num_items(params, coll)
         nn = max(cfg.num_neg, 1)
         T = max(cfg.num_tries, 1)
         if cand is None:
             cand = sample_unrated(keys[0], rated, lengths, I, nn * T,
                                   hw=cfg.fast_rng,
                                   use_kernel=bool(cfg.use_pallas))
-        cand_raw = torch.as_tensor(cand, device=u.device).long().reshape(
-            B, nn, T)
+        cand = torch.as_tensor(cand, device=u.device)
+        u, i, w, lengths, cand = _rows_of(coll, u.shape[0], u, i, w, lengths,
+                                          cand)
+        B = u.shape[0]
+        cand_raw = cand.long().reshape(B, nn, T)
         cand_valid = cand_raw < I  # the sentinel: an empty complement
         cand = torch.clamp(cand_raw, 0, I - 1)
         uv_u = params["uv"][u]
-        yui = params["ib"][i] + torch.sum(uv_u * params["iv"][i], dim=-1)
+
+        def item_rows(idx):
+            if coll is not None and coll.items_split:
+                return (coll.gather_items(params["iv"], idx),
+                        coll.gather_items(params["ib"], idx))
+            return params["iv"][idx], params["ib"][idx]
+
+        iv_i, ib_i = item_rows(i)
+        iv_c, ib_c = item_rows(cand)
+        yui = ib_i + torch.sum(uv_u * iv_i, dim=-1)
         # ub cancels in yui - yuj; ib does not
-        yuj = params["ib"][cand] + torch.einsum(
-            "bd,bntd->bnt", uv_u, params["iv"][cand])
+        yuj = ib_c + torch.einsum("bd,bntd->bnt", uv_u, iv_c)
         violation = (yuj > (yui[:, None, None] - 1.0)) & cand_valid
         found = torch.any(violation, dim=-1)
         first = torch.argmax(violation.to(torch.uint8), dim=-1)  # first True
         j = cand.gather(2, first[..., None])[..., 0]
         return WARP._rank_weighted_apply(params, u, i, j, w, lengths,
                                          (first + 1).to(torch.int32), found,
-                                         cfg, loss)
+                                         cfg, loss, coll)
 
     @staticmethod
     def _dense_step(params, R, ratings, uids, weight, keys, *, cfg: MFConfig,

@@ -44,8 +44,10 @@ SIM_TYPES = ("JACCARD", "COSINE")
 class SimilarityConfig:
     """SimilarityType + topk (ref similarity_base.hpp:34-40).
     ``block_size``: index rows per co-occurrence block. ``sharded``: the
-    mesh-parallel build, which comes with the sharded trainers (ROADMAP
-    queue A item 4); None and False build serially on the one device."""
+    mesh-parallel build (``build_topk_neighbors_sharded``) over the
+    processes of the group; None = sharded when there is more than one
+    process (cdae_tpu's "more than one device"), False = serial on the one
+    device."""
 
     sim_type: str = "JACCARD"  # JACCARD | COSINE
     topk: int = 50
@@ -135,6 +137,51 @@ def build_topk_neighbors(binary: np.ndarray, sim_type: str, topk: int,
     return ids.cpu().numpy(), sims.cpu().numpy()
 
 
+def _build_topk_neighbors_sharded_dev(A: torch.Tensor, sim_type: str,
+                                      topk: int, mesh, block_size: int = 1024):
+    """``_build_topk_neighbors_dev`` over the ranks of ``mesh``: rank r
+    builds the row block [r * per, (r + 1) * per) against the replicated
+    binary matrix ``A`` with no collective (each row's count, normalise
+    and top-k touch only that row), then the blocks are all-gathered. The
+    lists equal the serial build's."""
+    sim_type = sim_type.upper()
+    if sim_type not in SIM_TYPES:
+        raise ValueError(f"unknown sim_type {sim_type!r}; expected one of "
+                         f"{SIM_TYPES}")
+    N = A.shape[0]
+    counts = torch.sum(A, dim=1)
+    k = min(topk, max(N - 1, 1))
+    per = max(-(-N // mesh.size), 1)
+    lo = min(mesh.rank * per, N)
+    hi = min(lo + per, N)
+    ids = torch.full((per, k), N, dtype=torch.int32, device=A.device)
+    sims = torch.zeros((per, k), dtype=A.dtype, device=A.device)
+    for start in range(lo, hi, block_size):
+        stop = min(start + block_size, hi)
+        i_blk, s_blk = _neighbor_block_math(A[start:stop], A,
+                                            counts[start:stop], counts,
+                                            start, sim_type, k)
+        ids[start - lo:stop - lo] = i_blk
+        sims[start - lo:stop - lo] = s_blk
+    return (mesh.all_gather_world(ids)[:N],
+            mesh.all_gather_world(sims)[:N])
+
+
+def build_topk_neighbors_sharded(binary: np.ndarray, sim_type: str,
+                                 topk: int, mesh=None, device=None,
+                                 block_size: int = 1024):
+    """The mesh-parallel neighbour build (cdae_tpu's): every rank calls
+    it with the same binary rows (N, M) and gets the whole graph, numpy
+    (N, K) ids padded with N and (N, K) sims, equal to the serial build."""
+    from cdae_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = mesh if mesh is not None else make_mesh(device=device)
+    A = torch.as_tensor(binary, dtype=torch.float32, device=mesh.device)
+    ids, sims = _build_topk_neighbors_sharded_dev(A, sim_type, topk, mesh,
+                                                  block_size)
+    return ids.cpu().numpy(), sims.cpu().numpy()
+
+
 def _flat_keys(ids: torch.Tensor, num_items: int) -> torch.Tensor:
     """(B, ...) item ids -> int64 keys b*I + id; ids outside [0, I) map to
     B*I, past the last row, so they add nothing."""
@@ -209,20 +256,27 @@ class SimilarityBase(RecsysModel):
                              f"expected one of {SIM_TYPES}")
 
     def reset(self, data: Interactions, seed: int = 0) -> ModelState:
-        if self.cfg.sharded:
-            raise NotImplementedError(
-                "the sharded neighbour build is not ported to cdae_tpu_torch "
-                "yet: it comes with the sharded trainers (ROADMAP queue A "
-                "item 4); sharded=None builds on the one device")
+        from cdae_tpu_torch.parallel.distributed import world_size
+
         if self.index_axis == "item":
             csr, N, M = data.csr_by_item(), data.num_items, data.num_users
         else:
             csr, N, M = data.csr(), data.num_users, data.num_items
         rows, _, _, _ = rows_from_csr(csr, np.arange(N), M)
         A = _binarize_rows(self._tensor(rows), M)
-        ids, sims = _build_topk_neighbors_dev(A, self.cfg.sim_type,
-                                              self.cfg.topk,
-                                              self.cfg.block_size)
+        sharded = self.cfg.sharded
+        if sharded is None:
+            sharded = world_size() > 1
+        if sharded:
+            from cdae_tpu_torch.parallel.mesh import make_mesh
+
+            ids, sims = _build_topk_neighbors_sharded_dev(
+                A, self.cfg.sim_type, self.cfg.topk,
+                make_mesh(device=self.device), self.cfg.block_size)
+        else:
+            ids, sims = _build_topk_neighbors_dev(A, self.cfg.sim_type,
+                                                  self.cfg.topk,
+                                                  self.cfg.block_size)
         return ModelState(params={"nbr_ids": ids, "nbr_sims": sims},
                           padded=data.padded(), num_users=data.num_users,
                           num_items=data.num_items)

@@ -42,10 +42,10 @@ _SIGNATURES = {
     "cdae_fused_topk_dense": (_P,) * 8 + (_I,) * 7 + (_P,),
     "cdae_fused_topk_csr": (_P, _P, _P, _P, _I, _P, _P, _P, _P)
                            + (_I,) * 7 + (_P,),
-    "cdae_hw_uniform": (_P, _I, _I, _I, _I, _P),
+    "cdae_hw_uniform": (_P,) + (_I,) * 6 + (_P,),
     "cdae_adagrad_update_tables": (_P, _I, _F, _F, _P),
     "cdae_fused_step": (_P,) * 17 + (_I,) * 4 + (_F,) * 5 + (_I,) * 8 + (_P,),
-    "cdae_warp_select": (_I,) + (_P,) * 8 + (_I,) * 7 + (_P,),
+    "cdae_warp_select": (_I,) + (_P,) * 8 + (_I,) * 8 + (_P,),
     "cdae_scatter_plan": (_P, _I, _I, _P, _P, _P, _P),
     "cdae_scatter_reduce": (_P, _P, _P, _P) + (_I,) * 5 + (_P,),
     "cdae_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _P),

@@ -395,13 +395,16 @@ def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def hw_uniform_plain(seed: int, shape: Tuple[int, int], draw: int = 0, *,
-                     device) -> torch.Tensor:
+                     device, row_offset: int = 0,
+                     col_offset: int = 0) -> torch.Tensor:
     """Plain version of ``hw_uniform``: the same 32-bit arithmetic on int64
     tensors, masked to 32 bits (logical shifts, since every value is
     non-negative)."""
     rows, cols = shape
-    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
-    c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
+    r = torch.arange(row_offset, row_offset + rows, dtype=torch.int64,
+                     device=device)[:, None] & _MASK32
+    c = torch.arange(col_offset, col_offset + cols, dtype=torch.int64,
+                     device=device)[None, :] & _MASK32
     x = ((int(seed) & _MASK32) + _mul32(r, _HASH_ROW) + _mul32(c, _HASH_COL)
          + ((int(draw) * _HASH_M2) & _MASK32)) & _MASK32
     x = x ^ (x >> 16)
@@ -413,7 +416,8 @@ def hw_uniform_plain(seed: int, shape: Tuple[int, int], draw: int = 0, *,
 
 
 def hw_uniform(seed: int, shape: Tuple[int, int], draw: int = 0, *,
-               device) -> torch.Tensor:
+               device, row_offset: int = 0, col_offset: int = 0
+               ) -> torch.Tensor:
     """(rows, cols) float32 uniforms in [0, 1) at 24-bit resolution, on
     ``device``. Element (r, c) is the low 24 bits of a murmur mix of
     (seed, r, c, draw), times 2**-24: a pure function of its coordinates,
@@ -421,12 +425,16 @@ def hw_uniform(seed: int, shape: Tuple[int, int], draw: int = 0, *,
     exactly these masks. ``draw`` separates independent draws of one step
     (0: corruption, 1: negatives). cdae_tpu draws from the TPU's hardware
     PRNG here, whose bits cannot be reproduced; this is its tiling-invariant
-    hash stream (cdae_tpu/ops/cdae_fused.py _hash_uniform), bit for bit."""
+    hash stream (cdae_tpu/ops/cdae_fused.py _hash_uniform), bit for bit.
+    ``row_offset`` / ``col_offset`` shift the coordinates: the result is
+    the (rows, cols) block at those offsets of a larger draw, which is how
+    a sharded step draws its block of the single-device draw."""
     device = torch.device(device)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"no kernel or plain version for {device}")
     if device.type == "cpu":
-        return hw_uniform_plain(seed, shape, draw, device=device)
+        return hw_uniform_plain(seed, shape, draw, device=device,
+                                row_offset=row_offset, col_offset=col_offset)
     from cdae_tpu_torch.ops import cuda_lib
 
     rows, cols = shape
@@ -437,8 +445,12 @@ def hw_uniform(seed: int, shape: Tuple[int, int], draw: int = 0, *,
     if rows * cols == 0:
         return out
     seed32 = ((int(seed) + 2**31) & _MASK32) - 2**31  # as a C int
+    if not (0 <= row_offset < 2**31 and 0 <= col_offset < 2**31):
+        raise ValueError(f"offsets ({row_offset}, {col_offset}): the kernel "
+                         "takes 0 <= offset < 2**31")
     rc = cuda_lib.lib().cdae_hw_uniform(out.data_ptr(), rows, cols, seed32,
-                                        int(draw), _stream(device))
+                                        int(draw), int(row_offset),
+                                        int(col_offset), _stream(device))
     cuda_lib.check(rc, "hw_uniform")
     hw_uniform.launches += 1
     return out
@@ -637,13 +649,15 @@ def _odd32(c: int) -> int:
 
 
 def warp_noise_plain(seed: int, rows: int, cols: int, nn: int,
-                     noise: str = "mshift", *, device):
+                     noise: str = "mshift", *, device, row_offset: int = 0):
     """The (rows, cols) 24-bit selection noise of each slot k < nn, as
     int64 tensors: cdae_tpu's per-(row, col, slot) hash, bit for bit.
     "mshift": two murmur bases of (seed, row, col) shared by all slots,
     then (base * a_k + base2 * b_k) >> 8; "hash": one murmur mix of
-    (seed, row, col, k) per slot, low 24 bits."""
-    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    (seed, row, col, k) per slot, low 24 bits. Rows count from
+    ``row_offset``."""
+    r = torch.arange(row_offset, row_offset + rows, dtype=torch.int64,
+                     device=device)[:, None] & _MASK32
     c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
     h0 = ((int(seed) & _MASK32) + _mul32(c, _WARP_C1)
           + _mul32(r, _WARP_C2)) & _MASK32
@@ -664,7 +678,7 @@ def warp_noise_plain(seed: int, rows: int, cols: int, nn: int,
 
 
 def warp_violator_select_plain(seed: int, uv_u, iv, ib, thr, mask_rows,
-                               nn: int, noise=None):
+                               nn: int, noise=None, row_offset: int = 0):
     """Plain version of ``warp_violator_select`` on full (B, I) tensors:
     library scores, the violation mask, its row counts, and per slot the
     first column of the largest noise among the violators (argmax of
@@ -676,7 +690,8 @@ def warp_violator_select_plain(seed: int, uv_u, iv, ib, thr, mask_rows,
     nviol = viol.sum(dim=1, dtype=torch.int32)
     j = torch.zeros((B, nn), dtype=torch.int32, device=uv_u.device)
     for k, x in enumerate(warp_noise_plain(seed, B, I, nn, noise,
-                                           device=uv_u.device)):
+                                           device=uv_u.device,
+                                           row_offset=row_offset)):
         j[:, k] = torch.where(viol, x, -1).argmax(dim=1).to(torch.int32)
     return nviol, j.clamp_(0, max(I - 1, 0))
 
@@ -690,6 +705,7 @@ def warp_violator_select(
     mask_rows: torch.Tensor,  # (B, I) int8, nonzero = rated
     nn: int,
     noise=None,
+    row_offset: int = 0,  # the first row's index in the whole batch
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """WARP's violator count and ``nn`` uniform violator picks per row,
     with no (B, I) array in memory. Violators of row b are the unrated
@@ -698,14 +714,15 @@ def warp_violator_select(
     24-bit noise of (seed, b, c, k), the lowest column on equal noise, so
     each pick is uniform over the row's violators; a row with none picks 0.
     The noise is cdae_tpu's ("mshift" by default, or "hash") bit for bit.
-    nn <= 32, D <= 128."""
+    Row b hashes as row ``row_offset + b``: a block of a batch's rows picks
+    what the whole batch's call picks there. nn <= 32, D <= 128."""
     noise = _warp_noise_mode(noise)
     if not 1 <= nn <= _MAX_NN:
         raise ValueError(f"nn={nn}: warp_violator_select takes 1 <= nn <= "
                          f"{_MAX_NN}")
     if not _on_cuda(uv_u):
         return warp_violator_select_plain(seed, uv_u, iv, ib, thr, mask_rows,
-                                          nn, noise)
+                                          nn, noise, row_offset)
     from cdae_tpu_torch.ops import cuda_lib
 
     dev = uv_u.device
@@ -739,7 +756,8 @@ def warp_violator_select(
         seed32, uv_u.data_ptr(), iv.data_ptr(), ib.data_ptr(), thr.data_ptr(),
         mask_rows.data_ptr(), None if part is None else part.data_ptr(),
         nviol.data_ptr(), j.data_ptr(), B, I, D,
-        nn, splits, per_split, _WARP_NOISE[noise], _stream(dev),
+        nn, splits, per_split, _WARP_NOISE[noise], int(row_offset),
+        _stream(dev),
     )
     cuda_lib.check(rc, "warp_violator_select")
     warp_violator_select.launches += 1

@@ -33,16 +33,17 @@ _MASK32 = 0xFFFFFFFF
 
 
 def hw_randint(seed: int, shape, maxval, salt: int = 0, *, device,
-               use_kernel: bool = True) -> torch.Tensor:
+               use_kernel: bool = True, row_offset: int = 0) -> torch.Tensor:
     """int32 uniform in [0, maxval) of ``shape``: ``floor(u * maxval)``
     capped at maxval - 1, with ``u = hw_uniform(seed ^ salt, shape)`` (its
     kernel for a CUDA device when ``use_kernel``, else its plain version).
     ``maxval`` is a number or a tensor broadcastable to ``shape``, >= 1.
-    The float scaling biases a draw by less than maxval * 2**-24."""
+    The float scaling biases a draw by less than maxval * 2**-24.
+    ``row_offset``: the rows of a larger draw from that row on."""
     s = (int(seed) ^ int(salt)) & _MASK32
     s = s - (1 << 32) if s >= (1 << 31) else s
     draw = hw_uniform if use_kernel else hw_uniform_plain
-    u01 = draw(s, tuple(shape), device=device)
+    u01 = draw(s, tuple(shape), device=device, row_offset=row_offset)
     mx = torch.as_tensor(maxval, device=u01.device)
     scaled = (u01 * mx.to(torch.float32)).to(torch.int32)
     return torch.minimum(scaled, mx.to(torch.int32) - 1)

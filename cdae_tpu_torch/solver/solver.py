@@ -60,11 +60,13 @@ class Solver:
         guard_max_restores: int = 1,
         loss_sample_size: int = 0,
     ):
+        from cdae_tpu_torch.parallel.distributed import is_primary
+
         self.model = model
         self.max_iteration = int(max_iteration)
         self.eval_iterations = max(int(eval_iterations), 1)
         self.seed = int(seed)
-        self.verbose = verbose
+        self.verbose = verbose and is_primary()  # one log of a sharded run
         self.trace_dir = trace_dir  # torch.profiler trace output
         # with ``guard`` on, every iteration checks the params finite; a
         # non-finite state restores the last checkpoint (params,
@@ -134,16 +136,16 @@ class Solver:
         start_iteration = 0
         fingerprint = ckpt.config_fingerprint(self.model, self.state)
         if resume_from:
-            ckpt.load_checkpoint(resume_from, self.state,
-                                 expect_fingerprint=fingerprint)
+            ckpt.load_model_checkpoint(self.model, resume_from, self.state,
+                                       expect_fingerprint=fingerprint)
             start_iteration = self.state.step
             self.post_resume(start_iteration, train_data)
             self._log(f"resumed {resume_from} at iteration {start_iteration}")
 
         def write_ckpt():
             if checkpoint_path:
-                ckpt.save_checkpoint(
-                    checkpoint_path, self.state,
+                ckpt.save_model_checkpoint(
+                    self.model, checkpoint_path, self.state,
                     extra={"model": type(self.model).__name__},
                     fingerprint=fingerprint,
                 )
@@ -168,8 +170,9 @@ class Solver:
                     if (checkpoint_path and os.path.exists(checkpoint_path)
                             and restores < self.guard_max_restores):
                         restores += 1
-                        ckpt.load_checkpoint(checkpoint_path, self.state,
-                                             expect_fingerprint=fingerprint)
+                        ckpt.load_model_checkpoint(
+                            self.model, checkpoint_path, self.state,
+                            expect_fingerprint=fingerprint)
                         iteration = self.state.step
                         self.post_resume(iteration, train_data)
                         self._log(

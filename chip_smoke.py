@@ -5,7 +5,9 @@ Phases, each printed as one JSON line:
   build   -- compile the CUDA kernels from cdae_tpu_torch/csrc (nvcc, one
              process per source, in parallel)
   kernel  -- each kernel against its plain PyTorch version on the card, at
-             the shapes its path gives it; error, median spans and device
+             the shapes its path gives it (B1 and B7 also at a sharded
+             step's offsets, bit for bit the slice of the whole launch);
+             error, median spans and device
              time (device_ms; beside the library call's where one exists),
              for every kernel here and in the phases below; the fused step
              (B4) also the same bits on a second launch, and B4, B5 and B6
@@ -189,6 +191,31 @@ Phases, each printed as one JSON line:
              in each point's TOPN): 12 lines, grid indices 0-11, configs
              paper_grid()'s, R@10 and MAP@10 finite; each point's R@10
              beside the record's, |mean delta| <= 0.03; seconds a point
+  the sharded path (counts from 0 before sharded_nccl, read after it: B1,
+  B2, B3, B5, B6, B7, B8):
+    sharded_nccl -- one rank over NCCL in this process: --task train
+             --sharded true --method CDAE through the CLI at ML-1M width
+             (D=50, batch 1024), 2 epochs, --dense_mode true (B1, B2; TOPN
+             through B5) and false (B8, B2; TOPN through B6), each beside
+             the same command without --sharded: the tables bit for bit,
+             the TOPN lists equal to the single card's lists of the same
+             kernel and, where the 10th and 11th scores are TOL apart, to
+             its evaluator's (B3 + topk_unrated); the sharded scores (B3)
+             equal to the single card's; a ShardedPairwise WARP epoch (B7,
+             B8) bit for bit; warm users/s of a third epoch beside the
+             single card's
+    sharded_gloo -- two ranks on the one card over gloo (NCCL refuses two
+             ranks on one device), spawned (``--sharded-rank``):
+             ShardedCDAE 1 x 2 dense and sparse (its lists through B6) and
+             2 x 1 dense, ShardedMFTP IMF and BPR (its lists), ShardedPairwise
+             WARP (B7 at each rank's row offset: one step held to the
+             tables' limit, the epoch to R@10's 0.005), ShardedNegMF,
+             ShardedIMF, ShardedFISM, ShardedALS / WRMF, 1-2 epochs each
+             against the single card (||a - b|| / ||b|| <= 1e-4 per
+             table; the lists by the TOL rule), a sharded checkpoint saved
+             after epoch 1 and resumed bit for bit; warm users/s of the
+             dense 1 x 2 CDAE -- host-staged collectives on one card, not
+             scaling; each rank's launches
 Then the whole run's wall time, the kernel table (each kernel's launches
 summed over the main paths that run it, beside them by path; B8's plan has
 a row of its own; a kernel timed at several shapes lists them all under
@@ -248,46 +275,46 @@ KERNELS = {
     # recommend and the sweep's TOPN decode through B3 too
     "decode_scores": ("pallas_kernels", "cdae_tpu_torch/csrc/decode_scores.cu",
                       "cdae_tpu/ops/pallas_kernels.py:53",
-                      ("serving", "leftovers")),
+                      ("serving", "leftovers", "sharded")),
     "fused_topk_scores": ("pallas_kernels",
                           "cdae_tpu_torch/csrc/fused_topk.cu",
                           "cdae_tpu/ops/pallas_kernels.py:557",
-                          ("serving",)),
+                          ("serving", "sharded")),
     "fused_topk_scores_csr": ("pallas_kernels",
                               "cdae_tpu_torch/csrc/fused_topk.cu",
                               "cdae_tpu/ops/pallas_kernels.py:641",
-                              ("serving",)),
+                              ("serving", "sharded")),
     "hw_uniform": ("pallas_kernels", "cdae_tpu_torch/csrc/hw_uniform.cu",
                    "cdae_tpu/ops/pallas_kernels.py:178",
                    ("training", "sparse_training", "mf_training",
-                    "leftovers")),
+                    "leftovers", "sharded")),
     "adagrad_update": ("pallas_kernels",
                        "cdae_tpu_torch/csrc/adagrad_update.cu",
                        "cdae_tpu/ops/pallas_kernels.py:108",
                        ("training", "fused_training", "warp_training",
                         "fism_training", "warp_mxu", "sparse_training",
-                        "mf_training", "leftovers")),
+                        "mf_training", "leftovers", "sharded")),
     "cdae_dense_step_fused": ("cdae_fused", "cdae_tpu_torch/csrc/cdae_fused.cu",
                               "cdae_tpu/ops/cdae_fused.py:249",
                               ("fused_training",)),
     "warp_violator_select": ("pallas_kernels",
                              "cdae_tpu_torch/csrc/warp_select.cu",
                              "cdae_tpu/ops/pallas_kernels.py:1028",
-                             ("warp_training", "warp_mxu")),
+                             ("warp_training", "warp_mxu", "sharded")),
     # WARP's default route, CDAE's sparse step, the ItemCF/UserCF scoring
     # and the feature-group models' steps sum through B8 too
     "scatter_matmul": ("pallas_kernels", "cdae_tpu_torch/csrc/scatter_rows.cu",
                        "cdae_tpu/ops/pallas_kernels.py:1147",
                        ("fism_training", "warp_training", "warp_mxu",
                         "sparse_training", "mf_training", "cf_serving",
-                        "linear_training")),
+                        "linear_training", "sharded")),
     # B8's id sort (the TPU kernel contracts one-hot tiles and sorts
     # nothing): a wrapper and a count of its own
     "scatter_plan": ("pallas_kernels", "cdae_tpu_torch/csrc/scatter_rows.cu",
                      "cdae_tpu/ops/pallas_kernels.py:1147",
                      ("fism_training", "warp_training", "warp_mxu",
                       "sparse_training", "mf_training", "cf_serving",
-                      "linear_training")),
+                      "linear_training", "sharded")),
     "gather_rows_mxu": ("pallas_kernels", "cdae_tpu_torch/csrc/gather_rows.cu",
                         "cdae_tpu/ops/pallas_kernels.py:856",
                         ("warp_mxu", "mf_training")),
@@ -308,14 +335,18 @@ def reset_counts(path: str) -> None:
             wrapper(name).launches = 0
 
 
-def read_counts(path: str, launches: dict, failed: list) -> None:
+def read_counts(path: str, launches: dict, failed: list,
+                counts=None) -> None:
     """Record the launch counts of ``path``'s kernels in
-    ``launches[name][path]``; a kernel of the path that never launched
-    fails the run."""
+    ``launches[name][path]`` (the wrappers' counts, or ``counts``: name ->
+    launches, where the path's own runs were counted apart); a kernel of
+    the path that never launched fails the run."""
     for name, spec in KERNELS.items():
         if path not in spec[3]:
             continue
-        n = launches.setdefault(name, {})[path] = wrapper(name).launches
+        n = (wrapper(name).launches if counts is None
+             else counts.get(name, 0))
+        launches.setdefault(name, {})[path] = n
         if n == 0:
             emit(dict(phase="launches", path=path, kernel=name, ok=False,
                       error="the main path never launched this kernel"))
@@ -670,6 +701,25 @@ def phase_train_kernels(torch, results):
         record(results, "hw_uniform", row)
         if not equal:
             bad.append(f"hw_uniform {shape}")
+
+    # B1 at a sharded step's offsets: the (1024, 1853) column block of a
+    # 1 x 2 mesh and the (512, 3706) row block of a 2 x 1 mesh, bit for bit
+    # the slice of the whole (1024, 3706) draw and the plain version's
+    whole = P.hw_uniform(SEED, (1024, 3706), 0, device=dev)
+    for shape, r0, c0 in (((1024, 1853), 0, 1853), ((512, 3706), 512, 0)):
+        blk = P.hw_uniform(SEED, shape, 0, device=dev, row_offset=r0,
+                           col_offset=c0)
+        plain = P.hw_uniform_plain(SEED, shape, 0, device=dev,
+                                   row_offset=r0, col_offset=c0)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(blk, whole[r0:r0 + shape[0],
+                                            c0:c0 + shape[1]])
+                     and torch.equal(blk, plain))
+        emit(dict(phase="kernel", kernel="hw_uniform", case="offsets",
+                  shape=list(shape), row_offset=r0, col_offset=c0,
+                  bit_equal=equal))
+        if not equal:
+            bad.append(f"hw_uniform offsets {(r0, c0)}")
 
     # B2 over each training path's dense tables in one launch (the first
     # row, CDAE's at ML-1M, is the kernel's own in the table)
@@ -1138,6 +1188,21 @@ def phase_kernel_warp(torch, results):
         record(results, "warp_violator_select", row)
         if not nviol_equal or j_rows_differ or not h_equal:
             bad.append(f"warp_violator_select {(B, I, D, nn)}")
+        # a data rank's half of the batch at its row offset (sharded WARP
+        # on a 2 x 1 mesh): the whole launch's counts and picks there
+        half = B // 2
+        sub = [a[half:].contiguous() if a.dim() and a.shape[0] == B else a
+               for a in args[:5]]
+        o_nviol, o_j = P.warp_violator_select(SEED, *sub, nn,
+                                              row_offset=half)
+        torch.cuda.synchronize()
+        o_equal = bool(torch.equal(o_nviol, nviol[half:])
+                       and torch.equal(o_j, j[half:]))
+        emit(dict(phase="kernel_warp", kernel="warp_violator_select",
+                  case="offsets", B=B - half, row_offset=half, I=I, D=D,
+                  nn=nn, equal=o_equal))
+        if not o_equal:
+            bad.append(f"warp_violator_select row_offset {(B, I)}")
         del args
 
     B, I, D, nn = 64, 256, 4, 4
@@ -1230,12 +1295,13 @@ def phase_train_warp_xla(torch, held):
                 and r_x > xla.history[0]["R@10"])
 
 
-def _profile(torch, fn, groups=None) -> dict:
+def _profile(torch, fn, groups=None, host=False) -> dict:
     """One call of ``fn`` under torch.profiler: host wall, device busy time
     (the sum of the CUDA kernels' spans on the one stream), idle share and
     the largest kernels; with ``groups`` (label -> kernel-name parts) also
-    the device ms of each group's kernels. Without device events the
-    device numbers are None (not measured)."""
+    the device ms of each group's kernels; with ``host`` the host ops of
+    the largest self CPU time. Without device events the device numbers
+    are None (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1258,6 +1324,10 @@ def _profile(torch, fn, groups=None) -> dict:
                idle_share=None if busy is None else 1.0 - busy / wall_ms,
                device_kernels=kernels,
                top_kernels_ms=[[n[:80], ms] for n, ms in top])
+    if host:
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        out["top_host_ops_ms"] = [[e.key[:60], e.self_cpu_time_total / 1e3,
+                                   e.count] for e in ops[:8]]
     if groups:
         out["group_device_ms"] = {
             label: (sum(ms for n, ms in by_name.items()
@@ -3486,6 +3556,456 @@ def phase_sweep(torch, tmp, repo):
                 seconds_per_point=wall / max(len(lines), 1), ok=ok)
 
 
+# ------------------------------------------------------ the sharded path ----
+# counts from 0 before sharded_nccl; the path's counts are the launches of
+# its sharded runs alone (``launches_sharded_runs``: the single-card twins
+# and the references they are held against are not counted): every kernel
+# of the sharded trainers launched by one rank over NCCL in this process
+# (B1, B2, B3, B5, B6, B7, B8). sharded_gloo's ranks count their sharded
+# runs apart the same way, and each must launch GLOO_KERNELS
+
+SHARDED_EPOCHS = 2
+# a sharded run against the single-device run: the CPU tests' limits, per
+# table -- ||a - b|| / ||b|| <= ROUTE_REL_TOL (1e-4), as the smoke holds two
+# routes whose sums run in other orders. The elementwise ratio to the CPU
+# tests' rtol 1e-4 / atol 1e-5 is printed too: at these widths a gradient
+# that is a small difference of large sums (AdaGrad accumulators square
+# it) moves by more than that where only the order of the sums changed
+SHARDED_RTOL, SHARDED_ATOL = 1e-4, 1e-5
+# the kernels every gloo rank's sharded runs launch: B1, B2, B6 (the
+# sparse 1 x 2 TOPN), B7 and B8
+GLOO_KERNELS = ("hw_uniform", "adagrad_update", "fused_topk_scores_csr",
+                "warp_violator_select", "scatter_matmul", "scatter_plan")
+# the rounding witness: the dense CDAE cases' single-device run repeated on
+# the CPU (the same program, its sums in the CPU library's order) and held
+# against the card's by the same measures as the sharded runs
+WITNESS_CASES = ("cdae_dense_1x2", "cdae_dense_2x1")
+
+
+def _within(torch, got: dict, want: dict) -> dict:
+    """Over the tables of ``want``: the largest relative distance ||a - b||
+    / ||b|| (gated at ROUTE_REL_TOL), the largest |a - b| and the largest
+    |a - b| / (atol + rtol |b|) (printed)."""
+    worst, err, rel = 0.0, 0.0, 0.0
+    for k, b in want.items():
+        a, b = got[k].double(), b.double()
+        d = (a - b).abs()
+        err = max(err, d.max().item())
+        worst = max(worst, (d / (SHARDED_ATOL + SHARDED_RTOL
+                                 * b.abs())).max().item())
+        rel = max(rel, (d.norm() / b.norm().clamp_min(1e-30)).item())
+    return dict(max_rel_diff=rel, max_abs_err=err,
+                elementwise_worst_ratio=worst, within=rel <= ROUTE_REL_TOL)
+
+
+def _eval_batches(torch, train, test, dev):
+    from cdae_tpu_torch.evaluation import RecListEvaluation
+
+    return RecListEvaluation("TOPN")._batches(test, train, dev)[1]
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _lists_vs_topn(torch, lists, batches, ref_scores):
+    """A sharded model's top-10 lists (one a batch of ``batches``) against
+    the single-device TOPN's (``ref_scores``(uids, rated, mask) -> (B, I),
+    then topk_unrated): equal on every row whose 10th and 11th reference
+    scores are TOL apart."""
+    from cdae_tpu_torch.ops.topk import topk_unrated
+
+    checked = differ = 0
+    for got, (uids, rated, mask, *_) in zip(lists, batches):
+        ids, vals = topk_unrated(ref_scores(uids, rated, mask), rated, 11)
+        sure = (vals[:, 9] - vals[:, 10]) > TOL
+        same = (got.to(ids.device).long() == ids[:, :10].long()).all(dim=1)
+        checked += int(sure.sum())
+        differ += int((sure & ~same).sum())
+    return dict(rows_checked=checked, rows_differ=differ)
+
+
+def phase_sharded_nccl(torch, tmp, held, device="cuda"):
+    """One rank over NCCL, in this process: ``--task train --sharded true
+    --method CDAE`` through the CLI at ML-1M width (6040 x 3706, D=50,
+    batch 1024), 2 epochs, dense (B1, B2, B5) and sparse (B8, B2, B6),
+    each beside the same command without --sharded: the tables bit for bit,
+    the TOPN lists equal to the single-device lists of the same kernel and
+    (TOL rule) to its evaluator's; the sharded scores (B3) against the
+    single-device decode; then one ShardedPairwise WARP epoch (B7, B8, B2)
+    bit for bit; warm users/s of a third epoch beside the single device's,
+    and one more epoch of each under torch.profiler (dense). At one rank
+    every collective of the steps is the identity (parallel/mesh.py), so
+    an explicit all_reduce checks the NCCL group itself. Only the sharded
+    runs are counted (``launches_sharded_runs``).
+    (``device="cpu"`` runs it over gloo on the CPU: a dry run of the
+    phase's code at a small size.)"""
+    import torch.distributed as dist
+
+    from cdae_tpu_torch import cli
+    from cdae_tpu_torch.data import io as data_io
+    from cdae_tpu_torch.models.cdae import _batch_topk_impl
+    from cdae_tpu_torch.models.mf import WARP
+    from cdae_tpu_torch.parallel.distributed import initialize, shutdown
+    from cdae_tpu_torch.parallel.trainer import ShardedPairwise
+
+    data = held["ml1m_data"]
+    cache = os.path.join(tmp, "sharded_ml1m.bin")
+    data_io.save_interactions(data, cache)
+    train, test = data.split_by_user(0.2, seed=SEED)
+    dev = torch.device(device)
+    batches = _eval_batches(torch, train, test, dev)
+    if not initialize(f"file://{os.path.join(tmp, 'nccl_rdv')}", 1, 0,
+                      device=device):
+        raise RuntimeError("the one-rank process group did not start")
+    U = data.num_users
+    out = dict(phase="sharded_nccl", backend=dist.get_backend(), world=1,
+               users=U, items=data.num_items, D=50, epochs=SHARDED_EPOCHS)
+    one = torch.ones(4, device=dev)
+    dist.all_reduce(one)
+    out["all_reduce_ok"] = ok = bool((one == 1).all())
+    # the launches of the sharded runs alone (the path's counts also hold
+    # their single-card twins)
+    tally = dict.fromkeys(KERNELS, 0)
+
+    def sharded(fn):
+        before = {n: wrapper(n).launches for n in KERNELS}
+        result = fn()
+        for n in KERNELS:
+            tally[n] += wrapper(n).launches - before[n]
+        return result
+
+    try:
+        argv = [a for a in ML1M_TRAIN]
+        argv[argv.index("--max_iters") + 1] = str(SHARDED_EPOCHS)
+        argv[argv.index("--eval_iters") + 1] = str(SHARDED_EPOCHS)
+        for dense in ("true", "false"):
+            args = argv + ["--cache_file", cache, "--dense_mode", dense,
+                           "--device", device]
+            runs = {}
+            for flag in ("false", "true"):
+                argv_f = cli.build_arg_parser().parse_args(
+                    args + ["--sharded", flag])
+                t0 = time.perf_counter()
+                runs[flag] = (sharded if flag == "true" else
+                              lambda f: f())(lambda: cli.train(argv_f))
+                _sync(torch, dev)
+                runs[flag].seconds = time.perf_counter() - t0
+            single, sh = runs["false"], runs["true"]
+            model, st = sh.model, sh.state
+            whole = model.gathered(st).params
+            bitwise = all(torch.equal(whole[k], v)
+                          for k, v in single.state.params.items())
+            mode = "fused_dense" if dense == "true" else "fused_csr"
+            R = single.state.aux.get("dense_R")
+            same_kernel, got = True, []
+            for uids, rated, mask, *_ in batches:
+                got.append(sharded(lambda: model.batch_topk(
+                    st, uids, rated, mask, 10)))
+                u = torch.as_tensor(uids, dtype=torch.long, device=dev)
+                ref = _batch_topk_impl(single.state.params, u, rated, mask,
+                                       R, cfg=single.model.cfg, mode=mode,
+                                       k=10)
+                same_kernel &= bool(torch.equal(got[-1], ref))
+            lists = _lists_vs_topn(
+                torch, got, batches,
+                lambda u, r, m: single.model.batch_scores(single.state, u,
+                                                          r, m))
+            uids, rated, mask, *_ = batches[-1]
+            s_sh = sharded(lambda: model.batch_scores(st, uids, rated,
+                                                      mask))
+            s_1 = single.model.batch_scores(single.state, uids, rated, mask)
+            scores_err = (s_sh - s_1).abs().max().item()
+            hist = {k: [r["R@10"] for r in runs[k].history] for k in runs}
+            speed = {}
+            for name, m, s in (("single", single.model, single.state),
+                               ("sharded", model, st)):
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                (sharded if name == "sharded" else lambda f: f())(
+                    lambda: m.train_one_iteration(s, SEED))
+                _sync(torch, dev)
+                speed[name] = U / (time.perf_counter() - t0)
+            prof = {}
+            if dense == "true" and dev.type == "cuda":
+                prof["single"] = _profile(torch, lambda: (
+                    single.model.train_one_iteration(single.state, SEED)),
+                    host=True)
+                prof["sharded"] = sharded(lambda: _profile(
+                    torch, lambda: model.train_one_iteration(st, SEED),
+                    host=True))
+            row_ok = (bitwise and same_kernel and lists["rows_differ"] == 0
+                      and scores_err <= TOL and hist["true"] == hist["false"])
+            ok &= row_ok
+            out["dense" if dense == "true" else "sparse"] = dict(
+                model=type(model).__name__, tables_bitwise=bitwise,
+                lists_equal_same_kernel=same_kernel, lists_vs_topn=lists,
+                scores_max_abs_err_b3=scores_err, recall_at_10=hist,
+                cli_seconds={k: runs[k].seconds for k in runs},
+                warm_users_per_s=speed, profile_epoch=prof, ok=row_ok)
+        # B7 on the sharded path: a data-parallel WARP epoch at world 1
+        train_w = held["ml1m"][1][0]
+        cfg = _warp_cfg(use_pallas=True)  # B7 (its plain version on a CPU)
+        single = WARP(cfg, device=dev)
+        ss = single.reset(train_w, seed=SEED)
+        sh = ShardedPairwise(WARP(cfg, device=dev))
+        st = sh.reset(train_w, seed=SEED)
+        single.train_one_iteration(ss, SEED)
+        sharded(lambda: sh.train_one_iteration(st, SEED))
+        whole = sh.gathered(st).params
+        warp_bitwise = all(torch.equal(whole[k], v)
+                           for k, v in ss.params.items())
+        ok &= warp_bitwise
+        out["warp"] = dict(model=sh.name, epochs=1,
+                           tables_bitwise=warp_bitwise)
+    finally:
+        shutdown()
+    out["launches_sharded_runs"] = tally
+    out["ok"] = bool(ok)
+    return out
+
+
+def phase_sharded_gloo(torch, tmp, held, repo, device="cuda"):
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device), spawned here: each runs ``sharded_rank`` and rank 0 writes the
+    results. Every rank's sharded runs must launch each of GLOO_KERNELS.
+    The users/s here are host-staged collectives on one card, not
+    scaling."""
+    from cdae_tpu_torch.data import io as data_io
+
+    cache = os.path.join(tmp, "sharded_gloo.bin")
+    data_io.save_interactions(held["ml1m_data"], cache)
+    rdv = os.path.join(tmp, "gloo_rdv")
+    res_path = os.path.join(tmp, "gloo_ranks.json")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(repo, "chip_smoke.py"),
+         "--sharded-rank", str(r), "2", rdv, cache, res_path, device],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=400)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            logs.append(p.communicate()[0])
+    wall = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    if any(codes) or not os.path.exists(res_path):
+        raise RuntimeError(f"gloo ranks exited {codes}:\n" + "\n".join(
+            f"--- rank {r}\n{log[-4000:]}" for r, log in enumerate(logs)))
+    with open(res_path) as f:
+        res = json.load(f)
+    by_rank = []
+    for r in range(2):
+        with open(f"{res_path}.{r}") as f:
+            by_rank.append(json.load(f))
+    never = [[r, n] for r, counts in enumerate(by_rank)
+             for n in GLOO_KERNELS if not counts.get(n)
+             and device == "cuda"]  # a CPU dry run launches no kernel
+    res["ok"] = res["ok"] and not never
+    return dict(phase="sharded_gloo", backend="gloo", world=2,
+                seconds=wall, launches_by_rank=by_rank,
+                never_launched=never, **res)
+
+
+def sharded_rank(rank: int, world: int, rdv: str, cache: str,
+                 out: str, device: str = "cuda") -> int:
+    """One gloo rank of sharded_gloo on the card: each sharded trainer at
+    the smoke's widths, 1-2 epochs, against the single-device model (rank
+    0 trains it after each case), the sharded top-k lists against the
+    single-device lists, a sharded checkpoint resumed bit for bit, warm
+    users/s; the dense CDAE cases' device memory beside the single
+    device's, and their single-device run repeated on the CPU (the
+    rounding witness, WITNESS_CASES); rank 0 writes the results to
+    ``out``. Each rank writes the launches of its sharded runs alone
+    (rank 0's references and witness are not counted)."""
+    import dataclasses
+
+    import torch
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, repo)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import cdae_tpu_torch.ops.pallas_kernels as P
+    from cdae_tpu_torch.data import io as data_io
+    from cdae_tpu_torch.evaluation import RecListEvaluation
+    from cdae_tpu_torch.models import (BPR, IMF, WARP, ALSConfig, CDAEConfig,
+                                       FactorModelConfig, FISMConfig,
+                                       MFConfig, NegMF)
+    from cdae_tpu_torch.parallel import trainer as T
+    from cdae_tpu_torch.parallel.distributed import initialize, shutdown
+    from cdae_tpu_torch.parallel.mesh import make_mesh
+    from cdae_tpu_torch.parallel.tp_pairwise import ShardedMFTP
+    from cdae_tpu_torch.utils import checkpoint as ckpt
+
+    initialize(f"file://{rdv}", world, rank, device=device, backend="gloo")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    meshes = {"1x2": make_mesh(n_model=2, device=dev),
+              "2x1": make_mesh(n_model=1, device=dev)}
+    data = data_io.load_interactions(cache)
+    train, test = data.split_by_user(0.2, seed=SEED)
+    U = data.num_users
+    batches = _eval_batches(torch, train, test, dev)
+    cdae = CDAEConfig(num_dim=50, corruption_ratio=0.5, scaled=True,
+                      num_neg=5, loss="SQUARE", batch_size=1024)
+    mf = MFConfig(num_dim=10, num_neg=5, learn_rate=0.1, batch_size=8192)
+    cases = [
+        ("cdae_dense_1x2", "1x2", lambda m: T.ShardedCDAE(
+            dataclasses.replace(cdae, dense_mode=True), m), 2),
+        ("cdae_sparse_1x2", "1x2", lambda m: T.ShardedCDAE(
+            dataclasses.replace(cdae, dense_mode=False), m), 2),
+        ("cdae_dense_2x1", "2x1", lambda m: T.ShardedCDAE(
+            dataclasses.replace(cdae, dense_mode=True), m), 2),
+        ("mftp_imf_1x2", "1x2", lambda m: ShardedMFTP(
+            IMF(mf, device=dev), m), 1),
+        ("mftp_bpr_1x2", "1x2", lambda m: ShardedMFTP(
+            BPR(dataclasses.replace(mf, loss="LOG"), device=dev), m), 1),
+        # WARP's picks flip where a score sits on its threshold, so an
+        # epoch drifts from any other order of sums: one step (a one-batch
+        # epoch) is held to the tables' limit, the epoch to R@10's
+        ("pairwise_warp_step_2x1", "2x1", lambda m: T.ShardedPairwise(
+            WARP(_warp_cfg(use_pallas=True), device=dev), m), 1),
+        ("pairwise_warp_2x1", "2x1", lambda m: T.ShardedPairwise(
+            WARP(_warp_cfg(use_pallas=True), device=dev), m), 1),
+        ("negmf_2x1", "2x1", lambda m: T.ShardedNegMF(NegMF(
+            FactorModelConfig(num_dim=10, num_neg=5, loss="LOG",
+                              batch_size=4096), device=dev), m), 1),
+        ("imf_slab_1x2", "1x2", lambda m: T.ShardedIMF(
+            dataclasses.replace(mf, fast_rng=True), m), 1),
+        ("fism_1x2", "1x2", lambda m: T.ShardedFISM(FISMConfig(
+            num_dim=10, num_neg=5, loss="SQUARE", learn_rate=0.1,
+            batch_size=128), m), 1),
+        ("als_2x1", "2x1", lambda m: T.ShardedALS(
+            ALSConfig(num_dim=10, lambda_=0.01), m), 1),
+        ("wrmf_2x1", "2x1", lambda m: T.ShardedWRMF(
+            ALSConfig(num_dim=10, lambda_=0.01, scalar=40.0), m), 1),
+    ]
+    res, ok = {}, True
+    for name in P.__dict__:
+        fn = getattr(P, name)
+        if hasattr(fn, "launches"):
+            fn.launches = 0
+    counted = [n for n in KERNELS if hasattr(getattr(P, n, None), "launches")]
+    not_sharded = dict.fromkeys(counted, 0)  # launches of the references
+
+    def mem():  # (bytes allocated now, peak since the last reset)
+        if dev.type != "cuda":
+            return 0, 0
+        return torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+
+    def reset_peak():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+    # the first 8,192 training interactions: one WARP batch, one step
+    one_batch = type(train).from_arrays(
+        train.users[:8192], train.items[:8192], train.ratings[:8192],
+        train.num_users, train.num_items)
+    for name, mesh, make, epochs in cases:
+        model = make(meshes[mesh])
+        data_c = one_batch if name == "pairwise_warp_step_2x1" else train
+        reset_peak()
+        base = mem()[0]
+        st = model.reset(data_c, seed=SEED)
+        for _ in range(epochs):
+            model.train_one_iteration(st, SEED)
+        _sync(torch, dev)
+        peak = mem()[1] - base
+        whole = model.gathered(st).params
+        row = dict(mesh=mesh, model=type(model).__name__, epochs=epochs)
+        if name in WITNESS_CASES:
+            blk = st.aux["dense_R_block"]
+            row.update(dense_R_block_shape=list(blk.shape),
+                       dense_R_whole_on_rank="dense_R" in st.aux,
+                       peak_bytes_this_rank=peak)
+        if name == "cdae_dense_1x2":  # warm users/s of a third epoch
+            t0 = time.perf_counter()
+            model.train_one_iteration(st, SEED)
+            _sync(torch, dev)
+            row["warm_users_per_s_host_staged"] = U / (
+                time.perf_counter() - t0)
+            whole = model.gathered(st).params
+            epochs += 1
+        lists = None
+        if name in ("cdae_sparse_1x2", "mftp_bpr_1x2"):
+            lists = [model.batch_topk(st, u, r, m, 10)
+                     for u, r, m, *_ in batches]
+        r10 = None
+        if name == "pairwise_warp_2x1":
+            r10 = RecListEvaluation("TOPN").evaluate(model, st, test,
+                                                     train)["R@10"]
+        before = {n: getattr(P, n).launches for n in counted}
+        if rank == 0:
+            reset_peak()
+            base = mem()[0]
+            single = type(model.inner)(model.inner.cfg, device=dev)
+            ss = single.reset(data_c, seed=SEED)
+            init = {k: v.to("cpu", copy=True) for k, v in ss.params.items()}
+            for _ in range(epochs):
+                single.train_one_iteration(ss, SEED)
+            _sync(torch, dev)
+            if name in WITNESS_CASES:
+                row["peak_bytes_single"] = mem()[1] - base
+                # the card's config (B1's hash draws) and initial tables
+                cpu = type(model.inner)(model.inner.cfg, device="cpu")
+                cs = cpu.reset(data_c, seed=SEED)
+                cs.params = init
+                for _ in range(epochs):
+                    cpu.train_one_iteration(cs, SEED)
+                row["witness_cpu_vs_card"] = _within(
+                    torch, {k: v.to(dev) for k, v in cs.params.items()},
+                    ss.params)
+            row.update(_within(torch, whole, ss.params))
+            if r10 is not None:  # the epoch: R@10 within 0.005
+                r10_1 = RecListEvaluation("TOPN").evaluate(
+                    single, ss, test, train)["R@10"]
+                row.update(recall_at_10=r10, recall_at_10_single=r10_1,
+                           within=abs(r10 - r10_1) <= 0.005)
+            if lists is not None:
+                row["lists"] = _lists_vs_topn(
+                    torch, lists, batches,
+                    lambda u, r, m: single.batch_scores(ss, u, r, m))
+                row["within"] = (row["within"]
+                                 and row["lists"]["rows_differ"] == 0)
+            ok &= row["within"]
+        for n in counted:
+            not_sharded[n] += getattr(P, n).launches - before[n]
+        res[name] = row
+    # a sharded checkpoint after epoch 1 resumes bit for bit
+    model = T.ShardedCDAE(dataclasses.replace(cdae, dense_mode=True),
+                          meshes["1x2"])
+    st = model.reset(train, seed=SEED)
+    fp = ckpt.config_fingerprint(model, st)
+    path = os.path.join(os.path.dirname(rdv), "sharded.ckpt")
+    model.train_one_iteration(st, SEED)
+    ckpt.save_sharded(path, st, fingerprint=fp)
+    model.train_one_iteration(st, SEED)
+    a = model.gathered(st).params
+    fresh = model.reset(train, seed=SEED + 1)
+    ckpt.load_sharded(path, fresh, expect_fingerprint=fp)
+    model.train_one_iteration(fresh, SEED)
+    b = model.gathered(fresh).params
+    resumed = all(torch.equal(a[k], b[k]) for k in a)
+    res["checkpoint"] = dict(mesh="1x2", resumed_bitwise=resumed,
+                             manifest=sorted(ckpt.sharded_manifest(path)))
+    ok &= resumed
+    with open(f"{out}.{rank}", "w") as f:  # its sharded runs' launches
+        json.dump({n: getattr(P, n).launches - not_sharded[n]
+                   for n in counted}, f)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(dict(cases=res, ok=bool(ok)), f)
+    meshes["1x2"].barrier()
+    shutdown()
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3692,6 +4212,20 @@ def main() -> int:
     else:
         failed.append("leftover phases (no ML-1M CDAE or IMF run to build "
                       "on)")
+    if "ml1m" in held:
+        t_sh = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts("sharded")
+            row = run("sharded_nccl",
+                      lambda: phase_sharded_nccl(torch, tmp, held))
+            # the sharded runs' own launches, not their single-card twins'
+            read_counts("sharded", launches, failed,
+                        (row or {}).get("launches_sharded_runs", {}))
+            run("sharded_gloo",
+                lambda: phase_sharded_gloo(torch, tmp, held, repo))
+        emit(dict(phase="sharded_wall", seconds=time.perf_counter() - t_sh))
+    else:
+        failed.append("sharded phases (no ML-1M run to build on)")
     emit(dict(phase="wall", seconds=time.perf_counter() - t_start))
 
     table = []
@@ -3735,4 +4269,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:  # a rank of sharded_gloo
+        sys.exit(sharded_rank(int(sys.argv[2]), int(sys.argv[3]),
+                              *sys.argv[4:8]))
     sys.exit(main())

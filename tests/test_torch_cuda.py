@@ -1545,3 +1545,42 @@ def test_native_loader_builds_and_parses_on_this_host(cuda, tmp_path):
         np.testing.assert_array_equal(getattr(fast, f), getattr(slow, f))
     assert fast.user_vocab.to_list() == slow.user_vocab.to_list()
     assert fast.item_vocab.to_list() == slow.item_vocab.to_list()
+
+
+# ------------------------------------------- sharded steps' kernel offsets ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r0,c0,shape", [(0, 0, (64, 100)),
+                                         (512, 1853, (512, 1853)),
+                                         (7, 3, (33, 65))])
+def test_hw_uniform_offsets_cut_the_whole_launch(cuda, r0, c0, shape):
+    """A block launched at (row_offset, col_offset) -- a sharded step's
+    block of the mask draw -- equals that block of the whole launch, bit
+    for bit, and its plain version's."""
+    rows, cols = shape
+    whole = P.hw_uniform(-3, (r0 + rows, c0 + cols), 1, device=cuda)
+    before = P.hw_uniform.launches
+    blk = P.hw_uniform(-3, shape, 1, device=cuda, row_offset=r0,
+                       col_offset=c0)
+    torch.cuda.synchronize()
+    assert P.hw_uniform.launches == before + 1
+    assert torch.equal(blk, whole[r0:, c0:])
+    assert torch.equal(blk, P.hw_uniform_plain(-3, shape, 1, device=cuda,
+                                               row_offset=r0, col_offset=c0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,I,D,nn,noise", [(256, 3706, 10, 5, "mshift"),
+                                            (70, 999, 50, 9, "hash")])
+def test_warp_violator_select_row_offset_cuts_the_whole_batch(
+        cuda, rng_np, B, I, D, nn, noise):
+    """A data rank's rows launched with its row offset pick exactly what
+    the whole batch's launch picks in those rows."""
+    uv, iv, ib, thr, mask = _on(cuda, *_warp_inputs(rng_np, B, I, D))
+    nv, j = P.warp_violator_select(9, uv, iv, ib, thr, mask, nn, noise=noise)
+    for lo, hi in ((0, B // 2), (B // 2, B), (5, B - 3)):
+        nv2, j2 = P.warp_violator_select(
+            9, uv[lo:hi].contiguous(), iv, ib, thr[lo:hi].contiguous(),
+            mask[lo:hi].contiguous(), nn, noise=noise, row_offset=lo)
+        torch.cuda.synchronize()
+        assert torch.equal(nv2, nv[lo:hi]) and torch.equal(j2, j[lo:hi])

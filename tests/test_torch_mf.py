@@ -436,8 +436,10 @@ def test_cli_trains_warp(movielens_path, tmp_path):
 # ------------------------------------------------------ not ported yet ----
 
 def test_unported_routes_raise(splits):
-    """What is still unported raises naming a later slice: --sharded. The
-    registry now holds cdae_tpu's 15 names: WARP's slab, pool and scan
+    """Nothing is left to raise naming a later slice: --sharded dispatches
+    as cdae_tpu's (tests/test_torch_parallel.py), and refuses what cdae_tpu
+    refuses with its words (ITEMCF below). The registry holds cdae_tpu's 15
+    names: WARP's slab, pool and scan
     routes and the rest of the MF family train (their own tests:
     test_torch_warp_routes.py, test_torch_mf_zoo.py), as do B9
     (gather_mode="mxu") and B8 (the pallas scatter modes) on WARP; ALS,
@@ -481,6 +483,8 @@ def test_unported_routes_raise(splits):
         ["--method", "NEGMF", "--device", "cpu"]))) is tlin.NegMF
     with pytest.raises(SystemExit, match="unknown --method"):
         tcli.run(["--task", "test", "--method", "NEGMFX", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="sharded.*later slice"):
-        tcli.run(["--task", "test", "--method", "IMF", "--sharded", "true",
-                  "--device", "cpu"])
+    with pytest.raises(SystemExit,
+                       match="--sharded not supported for --method ITEMCF"):
+        tcli.run(["--task", "test", "--method", "ITEMCF", "--sharded",
+                  "true", "--device", "cpu"])
+    assert not hasattr(tcli, "_LATER")

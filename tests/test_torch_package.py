@@ -38,7 +38,10 @@ def test_imports_without_jax():
     names = set(out.stdout.split())
     assert len(names) >= 15  # every module was imported
     for mod in ("_native", "sweep", "utils.parallel", "solver.line_search",
-                "utils.random", "utils.checkpoint", "cli"):
+                "utils.random", "utils.checkpoint", "cli", "parallel",
+                "parallel.mesh", "parallel.distributed", "parallel.topk",
+                "parallel.sharded", "parallel.trainer",
+                "parallel.tp_pairwise"):
         assert f"cdae_tpu_torch.{mod}" in names, mod
 
 
@@ -56,6 +59,25 @@ def test_top_level_api_equals_cdae_tpu():
             assert set(port) == set(ref), name
 
 
+def test_parallel_api_equals_cdae_tpu():
+    """cdae_tpu_torch.parallel has cdae_tpu.parallel's ``__all__`` (the
+    trainers lazily, as there), and the sharded checkpoints and neighbour
+    build sit where cdae_tpu has them. The import walk above holds every
+    one of its modules to no jax and no cdae_tpu."""
+    import cdae_tpu.parallel as jpar
+    import cdae_tpu_torch.parallel as tpar
+    from cdae_tpu_torch.models import similarity
+    from cdae_tpu_torch.utils import checkpoint
+
+    assert tpar.__all__ == jpar.__all__
+    for name in tpar.__all__:
+        assert callable(getattr(tpar, name)), name
+    for name in ("save_sharded", "load_sharded", "sharded_manifest",
+                 "sharded_rng_key"):
+        assert callable(getattr(checkpoint, name)), name
+    assert callable(similarity.build_topk_neighbors_sharded)
+
+
 def test_cuda_request_raises_without_gpu(monkeypatch, tmp_path):
     from cdae_tpu_torch import cli
     from cdae_tpu_torch.models.cdae import CDAE
@@ -70,8 +92,8 @@ def test_cuda_request_raises_without_gpu(monkeypatch, tmp_path):
 
 def test_later_tasks_and_methods_exit_with_message(movielens_path,
                                                    tmp_path, capsys):
-    """--sharded exits naming a later slice (the sharded trainers); the
-    sweep task, which once exited so too, runs (one grid point here);
+    """--sharded and the sweep task, which once exited naming a later
+    slice, run (one process's sharded BPR, one grid point here);
     every method cdae_tpu takes builds (LINEAR, FM and NEGMF were the last
     to come; ALS, WRMF, ITEMCF and USERCF before them) and one it does not
     know exits with ``unknown --method``; --task train trains Popularity
@@ -105,10 +127,10 @@ def test_later_tasks_and_methods_exit_with_message(movielens_path,
         assert type(model).__name__ == name
     with pytest.raises(SystemExit, match="unknown --method LINEARX"):
         cli.run(["--task", "test", "--method", "LINEARX", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="later slice.*sharded trainers"):
-        cli.run(["--task", "train", "--method", "BPR", "--sharded", "true",
-                 "--cache_file", cache, "--device", "cpu",
-                 "--skip_popularity"])
+    row = cli.run(["--task", "train", "--method", "BPR", "--sharded", "true",
+                   "--cache_file", cache, "--device", "cpu",
+                   "--skip_popularity", "--max_iters", "1"])
+    assert row["iter"] == 1.0 and 0.0 <= row["R@10"] <= 1.0
 
 
 def test_prepare_and_split_tasks_match_cdae_tpu(movielens_path, tmp_path):

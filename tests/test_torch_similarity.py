@@ -163,9 +163,15 @@ def test_registry_config_and_refusals():
         assert isinstance(tmodels.create_model(name, device="cpu"), cls)
     cfg = tsim.SimilarityConfig()
     assert (cfg.sim_type, cfg.topk, cfg.block_size) == ("JACCARD", 50, 1024)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        tsim.ItemCF(tsim.SimilarityConfig(sharded=True),
-                    device="cpu").reset(TInteractions.from_arrays([0], [0]))
+    # sharded=True is the mesh-parallel build now (one process: the whole
+    # graph on its one rank), no longer a refusal
+    one = TInteractions.from_arrays([0, 1], [0, 0])
+    got = tsim.ItemCF(tsim.SimilarityConfig(sharded=True),
+                      device="cpu").reset(one).params
+    want = tsim.ItemCF(tsim.SimilarityConfig(sharded=False),
+                       device="cpu").reset(one).params
+    for k in want:
+        assert torch.equal(got[k], want[k])
     with pytest.raises(ValueError, match="sim_type"):
         tsim.UserCF(sim_type="PEARSON", device="cpu")
 
