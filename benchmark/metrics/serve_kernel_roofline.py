@@ -1,0 +1,9 @@
+"""The hand kernels' share of their roofline in serving (device_trace):
+the least time of every counted launch (harness/counts.py) over their
+traced device time, in %."""
+
+
+def read(t):
+    if t.kind != "serve":
+        return None
+    return t.roofline
