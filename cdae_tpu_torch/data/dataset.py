@@ -19,6 +19,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 
 from cdae_tpu_torch.data.vocab import Vocab
+from cdae_tpu_torch.utils.profiling import phase
 
 LineParser = Callable[[str], Optional[Tuple[str, str, str]]]
 
@@ -235,9 +236,10 @@ class Interactions:
     def csr(self) -> CSR:
         """Per-user sorted item lists."""
         if self._csr_user is None:
-            self._csr_user = _build_csr(
-                self.users, self.items, self.ratings, self.num_users
-            )
+            with phase("data.csr"):
+                self._csr_user = _build_csr(
+                    self.users, self.items, self.ratings, self.num_users
+                )
         return self._csr_user
 
     def csr_by_item(self) -> CSR:
@@ -268,6 +270,7 @@ class Interactions:
             out[u].setdefault(i, r)
         return out
 
+    @phase("data.padded")
     def padded(self, max_len: Optional[int] = None) -> PaddedUserBatch:
         """Padded per-user item lists for ALL users (0..num_users-1); items
         ascending in each row, padded with ``num_items``. The width is the

@@ -22,6 +22,7 @@ import torch
 from cdae_tpu_torch.data.dataset import (Interactions, PaddedUserBatch,
                                           rows_from_csr)
 from cdae_tpu_torch.ops.topk import topk_unrated
+from cdae_tpu_torch.utils.profiling import count, profiler_active, span
 
 
 @dataclasses.dataclass
@@ -217,7 +218,12 @@ class RecsysModel:
     dense_block = None
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
-        """``x`` as a tensor on the model's device."""
+        """``x`` as a tensor on the model's device; the bytes of a host
+        array copied to a CUDA device count in ``h2d_bytes`` while a
+        profiler runs."""
+        if (profiler_active() and self.device.type == "cuda"
+                and not isinstance(x, torch.Tensor)):
+            count("h2d_bytes", np.asarray(x).nbytes)
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
     def _dense_R(self, data) -> torch.Tensor:
@@ -287,10 +293,16 @@ class RecsysModel:
         rated sets to exclude and the input of models that score from the
         rated rows (CDAE). Returns (B, k) int32 ids on the model's device;
         id == num_items marks a padding slot (catalog smaller than k)."""
-        uids = np.asarray(uids, dtype=np.int32).reshape(-1)
-        rated, _, mask, _ = rows_from_csr(train_data.csr(), uids,
-                                          train_data.num_items)
-        rated = self._tensor(rated)
-        scores = self.batch_scores(state, uids, rated, self._tensor(mask))
-        ids, _ = topk_unrated(scores, rated, k)
+        with span("serve.request"):
+            uids = np.asarray(uids, dtype=np.int32).reshape(-1)
+            with span("serve.rows"):
+                rated, _, mask, _ = rows_from_csr(train_data.csr(), uids,
+                                                  train_data.num_items)
+                rated = self._tensor(rated)
+                mask = self._tensor(mask)
+            with span("serve.scores"):
+                scores = self.batch_scores(state, uids, rated, mask)
+                del mask  # free the device mask before the top-k
+            with span("serve.topk"):
+                ids, _ = topk_unrated(scores, rated, k)
         return ids

@@ -83,6 +83,7 @@ from cdae_tpu_torch.solver.optimizer import (
     dense_adagrad_steps,
     row_adagrad_delta,
 )
+from cdae_tpu_torch.utils.profiling import phase, span
 from cdae_tpu_torch.utils.random import step_seed
 
 _LOSS_STREAM = -1  # the seed stream of data_loss draws (not the solver's)
@@ -195,6 +196,7 @@ class CDAE(RecsysModel):
         self.penalty = Penalty.create(self.cfg.penalty)
 
     # ------------------------------------------------------------- reset ----
+    @phase("cdae.reset")
     def reset(self, data: Interactions, seed: int = 0) -> CDAEState:
         cfg = self.cfg
         U, I, D = data.num_users, data.num_items, cfg.num_dim
@@ -247,7 +249,8 @@ class CDAE(RecsysModel):
                 and cfg.batch_size * I * 40 <= _DENSE_MAX_SLAB_BYTES
             )
         if dense:
-            state.aux["dense_R"] = self._dense_R(data)
+            with phase("cdae.dense_R"):
+                state.aux["dense_R"] = self._dense_R(data)
         return state
 
     # ------------------------------------------------------------- train ----
@@ -255,15 +258,16 @@ class CDAE(RecsysModel):
         """Dense-mode batches: (k, B) uid and weight tensors on the device;
         the last batch wraps around to uid 0 with weight 0."""
         if "dense_batches" not in state.aux:
-            U = state.num_users
-            B = self.cfg.batch_size
-            k = max(-(-U // B), 1)
-            uids = np.arange(k * B, dtype=np.int64) % max(U, 1)
-            weight = (np.arange(k * B) < U).astype(np.float32)
-            state.aux["dense_batches"] = (
-                self._tensor(uids.reshape(k, B)),
-                self._tensor(weight.reshape(k, B)),
-            )
+            with phase("cdae.batches"):
+                U = state.num_users
+                B = self.cfg.batch_size
+                k = max(-(-U // B), 1)
+                uids = np.arange(k * B, dtype=np.int64) % max(U, 1)
+                weight = (np.arange(k * B) < U).astype(np.float32)
+                state.aux["dense_batches"] = (
+                    self._tensor(uids.reshape(k, B)),
+                    self._tensor(weight.reshape(k, B)),
+                )
         return state.aux["dense_batches"]
 
     def _device_batches(self, state: CDAEState):
@@ -281,7 +285,8 @@ class CDAE(RecsysModel):
             for b in self._host_batches(state))
         if not self.cfg.cache_device_batches:
             return batches
-        state.aux["device_batches"] = list(batches)
+        with phase("cdae.batches"):
+            state.aux["device_batches"] = list(batches)
         return state.aux["device_batches"]
 
     def _sparse_epoch(self, state: CDAEState, seed: int, draws,
@@ -291,12 +296,15 @@ class CDAE(RecsysModel):
         over the batches in host order or, ``by_shape``, grouped by
         ascending (B, L) shape with the host order kept within a group;
         ``draws`` (optional) yields each step's injected draws in turn."""
-        steps = enumerate(self._device_batches(state))
-        if by_shape:
-            steps = sorted(steps, key=lambda jb: tuple(jb[1][1].shape))
-        for j, batch in steps:
-            for c in range(self.cfg.num_corruptions):
-                _train_step(state.params, *batch,
+        with span("cdae.epoch"):
+            steps = enumerate(self._device_batches(state))
+            if by_shape:
+                steps = sorted(steps, key=lambda jb: tuple(jb[1][1].shape))
+            for j, batch in steps:
+                for c in range(self.cfg.num_corruptions):
+                    with span("cdae.step"):
+                        _train_step(
+                            state.params, *batch,
                             step_seed(seed, state.step, j, c),
                             cfg=self.cfg, loss=self.loss,
                             **(next(draws) if draws is not None else {}))
@@ -329,13 +337,15 @@ class CDAE(RecsysModel):
         R = state.aux["dense_R"]
         uid_mat, w_mat = self._dense_batches(state)
         for _ in range(num_epochs):
-            for j in range(uid_mat.shape[0]):
-                for c in range(self.cfg.num_corruptions):
-                    _dense_train_step(
-                        state.params, R, uid_mat[j], w_mat[j],
-                        step_seed(seed, state.step, j, c),
-                        cfg=self.cfg, loss=self.loss,
-                    )
+            with span("cdae.epoch"):
+                for j in range(uid_mat.shape[0]):
+                    for c in range(self.cfg.num_corruptions):
+                        with span("cdae.step"):
+                            _dense_train_step(
+                                state.params, R, uid_mat[j], w_mat[j],
+                                step_seed(seed, state.step, j, c),
+                                cfg=self.cfg, loss=self.loss,
+                            )
             state.step += 1
         return state
 
@@ -770,72 +780,80 @@ def _dense_train_step(
     need = [0] if q > 0.0 and u_corrupt is None else []  # draw 0: corruption
     if u_neg is None:
         need.append(1)  # draw 1: negatives
-    drawn = dict(zip(need, _draw_uniforms(seed, shape, need, cfg, W.device,
-                                          block)))
+    with span("cdae.step.draws"):
+        drawn = dict(zip(need, _draw_uniforms(seed, shape, need, cfg, W.device,
+                                              block)))
     u_corrupt = drawn.get(0, u_corrupt)
     u_neg = drawn.get(1, u_neg)
 
-    kept = rows * (u_corrupt > q).to(sdt) if q > 0.0 else rows
-    scale = input_scale(q, cfg.scaled)
+    with span("cdae.step.forward"):
+        kept = rows * (u_corrupt > q).to(sdt) if q > 0.0 else rows
+        scale = input_scale(q, cfg.scaled)
 
-    h = _mm(kept, W, cfg).to(dt)
-    if coll is not None:
-        h = coll.model_sum(h)
-    uu_rows = user_rows("Uu") if cfg.linear_function else None
-    wu_rows = user_rows("Wu") if cfg.user_factor else None
-    z = _finish_hidden(h * scale, params, {"Uu": uu_rows, "Wu": wu_rows},
-                       cfg)
-    dz = _z_one_minus_z(z, cfg)
+        h = _mm(kept, W, cfg).to(dt)
+        if coll is not None:
+            h = coll.model_sum(h)
+        uu_rows = user_rows("Uu") if cfg.linear_function else None
+        wu_rows = user_rows("Wu") if cfg.user_factor else None
+        z = _finish_hidden(h * scale, params, {"Uu": uu_rows, "Wu": wu_rows},
+                           cfg)
+        dz = _z_one_minus_z(z, cfg)
 
-    p_neg = _neg_probability(lengths, I, cfg).to(sdt)
-    neg_sel = ((1.0 - rows) * (u_neg < p_neg[:, None]).to(sdt)
-               * w_user[:, None])
-    w_mat = rows + neg_sel  # per-(user, item) touch counts (0/1 -- exact)
+        p_neg = _neg_probability(lengths, I, cfg).to(sdt)
+        neg_sel = ((1.0 - rows) * (u_neg < p_neg[:, None]).to(sdt)
+                   * w_user[:, None])
+        w_mat = rows + neg_sel  # per-(user, item) touch counts (0/1 -- exact)
 
-    table = params["V"] if cfg.asymmetric else W
-    pred = _mm(z, table.t(), cfg) + params["b_prime"].to(f32)[None, :]
-    # truth IS the 0/1 row: one gradient evaluation covers positives and
-    # negatives; g is stored in the slab dtype
-    g = (loss.gradient(pred, rows.to(f32)) * w_mat.to(f32)).to(sdt)
+        table = params["V"] if cfg.asymmetric else W
+        pred = _mm(z, table.t(), cfg) + params["b_prime"].to(f32)[None, :]
+        # truth IS the 0/1 row: one gradient evaluation covers positives and
+        # negatives; g is stored in the slab dtype
+        g = (loss.gradient(pred, rows.to(f32)) * w_mat.to(f32)).to(sdt)
 
-    touches = w_mat.sum(dim=0, dtype=f32).to(dt)  # (I,)
-    d_bp = g.sum(dim=0, dtype=f32).to(dt) + lam * touches * params["b_prime"]
-    hg = _mm(g, table, cfg).to(dt)
-    if coll is not None:
-        hg = coll.model_sum(hg)
-    hg = hg * dz
+        touches = w_mat.sum(dim=0, dtype=f32).to(dt)  # (I,)
+        d_bp = (g.sum(dim=0, dtype=f32).to(dt)
+                + lam * touches * params["b_prime"])
+        hg = _mm(g, table, cfg).to(dt)
+        if coll is not None:
+            hg = coll.model_sum(hg)
+        hg = hg * dz
 
-    base = (uu_rows * hg if cfg.linear_function else hg) * scale
-    if cfg.asymmetric:
-        # decoder touches update V; kept inputs update W with base + lam*W
-        d_V = _mm(g.t(), z, cfg).to(dt) + lam * touches[:, None] * table
-        d_W = _mm(kept.t(), base, cfg).to(dt) + lam * kept.sum(
-            dim=0, dtype=f32).to(dt)[:, None] * W
-    else:
-        # every touch contributes g*z, kept inputs add the base term, lambda
-        # once per touch
-        d_W = (_mm(g.t(), z, cfg).to(dt) + _mm(kept.t(), base, cfg).to(dt)
-               + lam * touches[:, None] * W)
-    # Uu's gradient needs the pre-update W: take it before the sweep
-    sum_kept_W = _mm(kept, W, cfg).to(dt) if cfg.linear_function else None
-    if coll is not None and sum_kept_W is not None:
-        sum_kept_W = coll.model_sum(sum_kept_W)
-    dense = {"W": d_W, "b_prime": d_bp}
-    if cfg.asymmetric:
-        dense["V"] = d_V
-    dense["b"] = w_user.to(f32) @ hg + w_user.sum() * lam * params["b"]
-    if coll is not None:
-        dense = coll.data_sum_all(dense)
-    # every dense grad is taken: one sweep (one kernel launch) for them all
-    dense_adagrad_steps(
-        [(params[name], params[name + "_ag"], g) for name, g in dense.items()],
-        lr, beta, cfg.using_adagrad, use_kernel)
-    _user_row_steps(params, uids, w_user, cfg, coll, uids_all, weight_all, {
-        "Wu": (lambda: (hg + lam * wu_rows) * w_user[:, None])
-        if cfg.user_factor else None,
-        "Uu": (lambda: (lam * uu_rows + hg * sum_kept_W) * w_user[:, None])
-        if cfg.linear_function else None,
-    })
+        base = (uu_rows * hg if cfg.linear_function else hg) * scale
+        if cfg.asymmetric:
+            # decoder touches update V; kept inputs update W with base + lam*W
+            d_V = _mm(g.t(), z, cfg).to(dt) + lam * touches[:, None] * table
+            d_W = _mm(kept.t(), base, cfg).to(dt) + lam * kept.sum(
+                dim=0, dtype=f32).to(dt)[:, None] * W
+        else:
+            # every touch contributes g*z, kept inputs add the base term,
+            # lambda once per touch
+            d_W = (_mm(g.t(), z, cfg).to(dt) + _mm(kept.t(), base, cfg).to(dt)
+                   + lam * touches[:, None] * W)
+        # Uu's gradient needs the pre-update W: take it before the sweep
+        sum_kept_W = _mm(kept, W, cfg).to(dt) if cfg.linear_function else None
+        if coll is not None and sum_kept_W is not None:
+            sum_kept_W = coll.model_sum(sum_kept_W)
+        dense = {"W": d_W, "b_prime": d_bp}
+        if cfg.asymmetric:
+            dense["V"] = d_V
+        dense["b"] = w_user.to(f32) @ hg + w_user.sum() * lam * params["b"]
+        if coll is not None:
+            dense = coll.data_sum_all(dense)
+    with span("cdae.step.update"):
+        # every dense grad is taken: one sweep (one kernel launch) for them
+        # all
+        dense_adagrad_steps(
+            [(params[name], params[name + "_ag"], g)
+             for name, g in dense.items()],
+            lr, beta, cfg.using_adagrad, use_kernel)
+        _user_row_steps(
+            params, uids, w_user, cfg, coll, uids_all, weight_all, {
+                "Wu": (lambda: (hg + lam * wu_rows) * w_user[:, None])
+                if cfg.user_factor else None,
+                "Uu": (lambda: (lam * uu_rows + hg * sum_kept_W)
+                       * w_user[:, None])
+                if cfg.linear_function else None,
+            })
     return params
 
 
@@ -1069,124 +1087,131 @@ def _train_step(
     need_neg = ((pool is None or u_sel is None) if cfg.neg_pool
                 else neg is None and cfg.num_neg > 0)
     if need_keep or need_neg:
-        drawn = _sparse_draws(seed, items, lengths, I, cfg, sl,
-                              uids_all.shape[0])
+        with span("cdae.step.draws"):
+            drawn = _sparse_draws(seed, items, lengths, I, cfg, sl,
+                                  uids_all.shape[0])
         u_keep = drawn.get("u_keep") if need_keep else u_keep
         if need_neg:
             neg, pool, u_sel = (drawn.get(k) for k in ("neg", "pool",
                                                         "u_sel"))
-    if keep is None:
-        keep = mask & (u_keep > q) if q > 0.0 else mask
-    live_user = weight[:, None] > 0
-    keep = keep & live_user
-    w_user = weight.to(dt)
-    mask_f = mask.to(dt) * w_user[:, None]
-    keep_f = keep.to(dt)
-    items_c = items.clamp(0, I - 1)
-    scale = input_scale(q, cfg.scaled)
 
     def item_rows(table, ids):
         return table[ids] if coll is None else coll.gather_items(table, ids)
 
-    user_rows = None
-    if coll is not None:
-        user_rows = {n: coll.gather_users(params[n], uids_all)[sl]
-                     for n in ("Uu", "Wu") if n in params}
+    with span("cdae.step.forward"):
+        if keep is None:
+            keep = mask & (u_keep > q) if q > 0.0 else mask
+        live_user = weight[:, None] > 0
+        keep = keep & live_user
+        w_user = weight.to(dt)
+        mask_f = mask.to(dt) * w_user[:, None]
+        keep_f = keep.to(dt)
+        items_c = items.clamp(0, I - 1)
+        scale = input_scale(q, cfg.scaled)
 
-    # ---- forward: one gather of the positives' W rows serves the encoder,
-    # the tied decoder and the input-side gradients
-    enc_rows = item_rows(W, items_c)  # (B, L, D)
-    z = _hidden(params, uids, items, keep, scale, cfg, rows=enc_rows,
-                user_rows=user_rows)
-    dz = _z_one_minus_z(z, cfg)
-    bp_items = item_rows(params["b_prime"], items_c)
-
-    # ---- positives (truth 1)
-    if cfg.asymmetric:
-        pred_pos, dec_pos = _decode_at(params, z, items, cfg, coll)
-    else:
-        dec_pos = enc_rows
-        pred_pos = torch.einsum("bld,bd->bl", _operand(enc_rows, cfg),
-                                _operand(z, cfg)).to(dt) \
-            + bp_items
-    g_pos = loss.gradient(pred_pos, 1.0) * mask_f
-    bp_pos_vals = (g_pos + lam * bp_items) * mask_f
-    hidden_grad = torch.einsum("bl,bld->bd", g_pos, dec_pos)
-
-    out_name = "V" if cfg.asymmetric else "W"
-    dec_table = params[out_name]
-    # the negatives' id vectors -- the pool, or each (B, L) chunk of the
-    # exact draws: with row_update their (ids, table grads, b' grads, live)
-    # in order, else one running [table | b'] sum (I, D + 1), each chunk
-    # summed as soon as it is taken
-    neg_sets, neg_sum = [], None
-
-    def add_negatives(ids, table_vals, bp_vals, live):
-        nonlocal neg_sum
-        if use_row:
-            neg_sets.append((ids, table_vals, bp_vals, live))
-            return
+        user_rows = None
         if coll is not None:
-            ids = coll.own_items(ids)
-        neg_sum = _aggregate(ids, (table_vals, bp_vals), n_tbl, sm, neg_sum)
-    if cfg.neg_pool:
-        K = int(cfg.neg_pool)
-        pool = pool.long()
-        dec_pool = item_rows(dec_table, pool)  # (K, D)
-        bp_pool = item_rows(params["b_prime"], pool)
-        pred_pool = _mm(z, dec_pool.t(), cfg).to(dt) + bp_pool[None, :]
-        rated = is_rated(items, lengths, pool)  # (B, K)
-        L_u = lengths.to(torch.float32)
-        q_u = torch.clamp(cfg.num_neg * L_u * I
-                          / (K * torch.clamp(I - L_u, min=1.0)), 0.0, 1.0)
-        sel = ((u_sel < q_u[:, None]) & ~rated & live_user).to(dt)
-        g_pool = loss.gradient(pred_pool, 0.0) * sel
-        touch = sel.sum(dim=0)  # (K,)
-        bp_pool_vals = g_pool.sum(dim=0) + lam * bp_pool * touch
-        table_pool_vals = g_pool.t() @ z + lam * dec_pool * touch[:, None]
-        hidden_grad = hidden_grad + g_pool @ dec_pool
-        add_negatives(pool, table_pool_vals, bp_pool_vals,
-                      torch.ones((K,), dtype=torch.bool, device=pool.device))
-    else:
-        # num_neg chunks of (B, L): one (B, L, D) gather at a time, not
-        # (B, num_neg * L, D) (cdae_tpu measured a 10.5 GB temporary at
-        # B=2048, L=1080, D=200 without the chunks)
-        for k in range(max(cfg.num_neg, 0)):
-            nk = neg[:, k * L:(k + 1) * L].long()
-            pred_nk, dec_nk = _decode_at(params, z, nk, cfg, coll)
-            bp_nk = item_rows(params["b_prime"], nk.clamp(0, I - 1))
-            # the sentinel id num_items (an empty complement) is no
-            # negative: its slot carries no gradient
-            nk_live = mask & (nk < I)
-            g_nk = loss.gradient(pred_nk, 0.0) * nk_live.to(dt)
-            bp_nk_vals = (g_nk + lam * bp_nk) * mask_f
-            w_nk_vals = ((g_nk[..., None] * z[:, None, :] + lam * dec_nk)
-                         * mask_f[..., None])
-            hidden_grad = hidden_grad + torch.einsum("bl,bld->bd", g_nk,
-                                                     dec_nk)
-            add_negatives(nk, w_nk_vals, bp_nk_vals, nk_live)
-    hg = hidden_grad * dz  # (B, D)
+            user_rows = {n: coll.gather_users(params[n], uids_all)[sl]
+                         for n in ("Uu", "Wu") if n in params}
 
-    # ---- decoder-table gradients of the positives
-    gz_pos = g_pos[..., None] * z[:, None, :]
-    if cfg.asymmetric:
-        out_vals = (gz_pos + lam * dec_pos) * mask_f[..., None]
-    else:
-        # positives kept in the input defer their g.z to the input side;
-        # dropped ones update W directly with g.z + lam.W_o
-        direct = mask_f * (1.0 - keep_f)
-        out_vals = (gz_pos + lam * dec_pos) * direct[..., None]
+        # ---- forward: one gather of the positives' W rows serves the
+        # encoder, the tied decoder and the input-side gradients
+        enc_rows = item_rows(W, items_c)  # (B, L, D)
+        z = _hidden(params, uids, items, keep, scale, cfg, rows=enc_rows,
+                    user_rows=user_rows)
+        dz = _z_one_minus_z(z, cfg)
+        bp_items = item_rows(params["b_prime"], items_c)
 
-    # ---- input-side (encoder) gradients of the kept items
-    uu_rows = (None if not cfg.linear_function else params["Uu"][uids]
-               if coll is None else user_rows["Uu"])
-    base = (uu_rows * hg if cfg.linear_function else hg) * scale
-    in_grad = (base[:, None, :] + lam * enc_rows
-               + (0.0 if cfg.asymmetric else gz_pos)) * keep_f[..., None]
-    # Uu's gradient reads the pre-update W rows
-    sum_kept_W = (torch.einsum("bld,bl->bd", enc_rows, keep_f)
-                  if cfg.linear_function else None)
-    d_b = w_user.to(torch.float32) @ hg + w_user.sum() * lam * params["b"]
+        # ---- positives (truth 1)
+        if cfg.asymmetric:
+            pred_pos, dec_pos = _decode_at(params, z, items, cfg, coll)
+        else:
+            dec_pos = enc_rows
+            pred_pos = torch.einsum("bld,bd->bl", _operand(enc_rows, cfg),
+                                    _operand(z, cfg)).to(dt) \
+                + bp_items
+        g_pos = loss.gradient(pred_pos, 1.0) * mask_f
+        bp_pos_vals = (g_pos + lam * bp_items) * mask_f
+        hidden_grad = torch.einsum("bl,bld->bd", g_pos, dec_pos)
+
+        out_name = "V" if cfg.asymmetric else "W"
+        dec_table = params[out_name]
+        # the negatives' id vectors -- the pool, or each (B, L) chunk of the
+        # exact draws: with row_update their (ids, table grads, b' grads,
+        # live) in order, else one running [table | b'] sum (I, D + 1), each
+        # chunk summed as soon as it is taken (a scatter span inside this
+        # forward one)
+        neg_sets, neg_sum = [], None
+
+        def add_negatives(ids, table_vals, bp_vals, live):
+            nonlocal neg_sum
+            if use_row:
+                neg_sets.append((ids, table_vals, bp_vals, live))
+                return
+            if coll is not None:
+                ids = coll.own_items(ids)
+            with span("cdae.step.scatter"):
+                neg_sum = _aggregate(ids, (table_vals, bp_vals), n_tbl, sm,
+                                     neg_sum)
+        if cfg.neg_pool:
+            K = int(cfg.neg_pool)
+            pool = pool.long()
+            dec_pool = item_rows(dec_table, pool)  # (K, D)
+            bp_pool = item_rows(params["b_prime"], pool)
+            pred_pool = _mm(z, dec_pool.t(), cfg).to(dt) + bp_pool[None, :]
+            rated = is_rated(items, lengths, pool)  # (B, K)
+            L_u = lengths.to(torch.float32)
+            q_u = torch.clamp(cfg.num_neg * L_u * I
+                              / (K * torch.clamp(I - L_u, min=1.0)), 0.0, 1.0)
+            sel = ((u_sel < q_u[:, None]) & ~rated & live_user).to(dt)
+            g_pool = loss.gradient(pred_pool, 0.0) * sel
+            touch = sel.sum(dim=0)  # (K,)
+            bp_pool_vals = g_pool.sum(dim=0) + lam * bp_pool * touch
+            table_pool_vals = g_pool.t() @ z + lam * dec_pool * touch[:, None]
+            hidden_grad = hidden_grad + g_pool @ dec_pool
+            add_negatives(pool, table_pool_vals, bp_pool_vals,
+                          torch.ones((K,), dtype=torch.bool,
+                                     device=pool.device))
+        else:
+            # num_neg chunks of (B, L): one (B, L, D) gather at a time, not
+            # (B, num_neg * L, D) (cdae_tpu measured a 10.5 GB temporary at
+            # B=2048, L=1080, D=200 without the chunks)
+            for k in range(max(cfg.num_neg, 0)):
+                nk = neg[:, k * L:(k + 1) * L].long()
+                pred_nk, dec_nk = _decode_at(params, z, nk, cfg, coll)
+                bp_nk = item_rows(params["b_prime"], nk.clamp(0, I - 1))
+                # the sentinel id num_items (an empty complement) is no
+                # negative: its slot carries no gradient
+                nk_live = mask & (nk < I)
+                g_nk = loss.gradient(pred_nk, 0.0) * nk_live.to(dt)
+                bp_nk_vals = (g_nk + lam * bp_nk) * mask_f
+                w_nk_vals = ((g_nk[..., None] * z[:, None, :] + lam * dec_nk)
+                             * mask_f[..., None])
+                hidden_grad = hidden_grad + torch.einsum("bl,bld->bd", g_nk,
+                                                         dec_nk)
+                add_negatives(nk, w_nk_vals, bp_nk_vals, nk_live)
+        hg = hidden_grad * dz  # (B, D)
+
+        # ---- decoder-table gradients of the positives
+        gz_pos = g_pos[..., None] * z[:, None, :]
+        if cfg.asymmetric:
+            out_vals = (gz_pos + lam * dec_pos) * mask_f[..., None]
+        else:
+            # positives kept in the input defer their g.z to the input side;
+            # dropped ones update W directly with g.z + lam.W_o
+            direct = mask_f * (1.0 - keep_f)
+            out_vals = (gz_pos + lam * dec_pos) * direct[..., None]
+
+        # ---- input-side (encoder) gradients of the kept items
+        uu_rows = (None if not cfg.linear_function else params["Uu"][uids]
+                   if coll is None else user_rows["Uu"])
+        base = (uu_rows * hg if cfg.linear_function else hg) * scale
+        in_grad = (base[:, None, :] + lam * enc_rows
+                   + (0.0 if cfg.asymmetric else gz_pos)) * keep_f[..., None]
+        # Uu's gradient reads the pre-update W rows
+        sum_kept_W = (torch.einsum("bld,bl->bd", enc_rows, keep_f)
+                      if cfg.linear_function else None)
+        d_b = w_user.to(torch.float32) @ hg + w_user.sum() * lam * params["b"]
 
     if use_row:
         def row_table_step(name, ids, vals, live):
@@ -1198,35 +1223,41 @@ def _train_step(
                               ids.reshape(-1).clamp(0, I - 1), vals, live,
                               lr, beta, cfg.using_adagrad, mode=sm)
 
-        # the reference's order: positive outputs, negative outputs, b',
-        # then the input rows
-        row_table_step(out_name, items, out_vals, mask)
-        for ids, table_vals, _, live in neg_sets:
-            row_table_step(out_name, ids, table_vals, live)
-        row_table_step("b_prime", items, bp_pos_vals, mask)
-        for ids, _, bp_vals, live in neg_sets:
-            row_table_step("b_prime", ids, bp_vals, live)
-        row_table_step("W", items, in_grad, keep)
+        with span("cdae.step.update"):
+            # the reference's order: positive outputs, negative outputs, b',
+            # then the input rows
+            row_table_step(out_name, items, out_vals, mask)
+            for ids, table_vals, _, live in neg_sets:
+                row_table_step(out_name, ids, table_vals, live)
+            row_table_step("b_prime", items, bp_pos_vals, mask)
+            for ids, _, bp_vals, live in neg_sets:
+                row_table_step("b_prime", ids, bp_vals, live)
+            row_table_step("W", items, in_grad, keep)
         dense = {"b": d_b}
     else:
-        dense = _sparse_dense_grads(
-            n_tbl, D, items if coll is None else coll.own_items(items),
-            out_vals, in_grad, bp_pos_vals, neg_sum,
-            pack=pack, asymmetric=cfg.asymmetric, mode=sm)
+        with span("cdae.step.scatter"):
+            dense = _sparse_dense_grads(
+                n_tbl, D, items if coll is None else coll.own_items(items),
+                out_vals, in_grad, bp_pos_vals, neg_sum,
+                pack=pack, asymmetric=cfg.asymmetric, mode=sm)
         dense["b"] = d_b
     if coll is not None:
         dense = coll.data_sum_all(dense)
-    # every dense gradient is taken: one sweep (one kernel launch)
-    dense_adagrad_steps(
-        [(params[name], params[name + "_ag"], g) for name, g in dense.items()],
-        lr, beta, cfg.using_adagrad, bool(cfg.use_pallas))
-    _user_row_steps(params, uids, w_user, cfg, coll, uids_all, weight_all, {
-        "Wu": (lambda: (hg + lam * (params["Wu"][uids] if coll is None
-                                    else user_rows["Wu"]))
-               * w_user[:, None]) if cfg.user_factor else None,
-        "Uu": (lambda: (lam * uu_rows + hg * sum_kept_W) * w_user[:, None])
-        if cfg.linear_function else None,
-    })
+    with span("cdae.step.update"):
+        # every dense gradient is taken: one sweep (one kernel launch)
+        dense_adagrad_steps(
+            [(params[name], params[name + "_ag"], g)
+             for name, g in dense.items()],
+            lr, beta, cfg.using_adagrad, bool(cfg.use_pallas))
+        _user_row_steps(
+            params, uids, w_user, cfg, coll, uids_all, weight_all, {
+                "Wu": (lambda: (hg + lam * (params["Wu"][uids] if coll is None
+                                            else user_rows["Wu"]))
+                       * w_user[:, None]) if cfg.user_factor else None,
+                "Uu": (lambda: (lam * uu_rows + hg * sum_kept_W)
+                       * w_user[:, None])
+                if cfg.linear_function else None,
+            })
     return params
 
 

@@ -1584,3 +1584,46 @@ def test_warp_violator_select_row_offset_cuts_the_whole_batch(
             mask[lo:hi].contiguous(), nn, noise=noise, row_offset=lo)
         torch.cuda.synchronize()
         assert torch.equal(nv2, nv[lo:hi]) and torch.equal(j2, j[lo:hi])
+
+
+@pytest.mark.cuda
+def test_recommend_spans_and_h2d_bytes_on_the_card(cuda, tmp_path):
+    """Under a profiler, a recommend on the card tallies its spans and
+    counts as ``h2d_bytes`` the host arrays it copies (the uids, the rated
+    rows and their mask); ``trace`` synchronises before it stops, so its
+    file holds the request's last kernel, launched inside ``serve.topk``."""
+    import json
+
+    from cdae_tpu_torch.data.dataset import rows_from_csr
+    from cdae_tpu_torch.models.cdae import CDAE, CDAEConfig
+    from cdae_tpu_torch.utils import profiling
+
+    train, _ = _lowrank_split()
+    model = CDAE(CDAEConfig(num_dim=50, batch_size=64), device=cuda)
+    state = model.reset(train, seed=3)
+    uids = np.arange(256, dtype=np.int32)
+    model.recommend(state, uids, train, k=10)  # warm
+    torch.cuda.synchronize()
+    profiling.reset_tallies()
+    with profiling.trace(str(tmp_path)):
+        model.recommend(state, uids, train, k=10)
+    tallies = profiling.tallies()
+    _, _, mask, _ = rows_from_csr(train.csr(), uids, train.num_items)
+    assert tallies.counters["h2d_bytes"] == (uids.nbytes + 4 * mask.size
+                                             + mask.nbytes)
+    assert {n: c for n, (c, _) in tallies.spans.items()} == {
+        "serve.request": 1, "serve.rows": 1, "serve.scores": 1,
+        "serve.topk": 1}
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    topk = next(e for e in events if e.get("name") == "serve.topk"
+                and not str(e.get("cat")).startswith("gpu_"))
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert kernels
+    last = max(kernels, key=lambda e: e["ts"] + e["dur"])
+    launch = next(e for e in events
+                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                  and e["args"].get("correlation")
+                  == last["args"]["correlation"])
+    assert topk["ts"] <= launch["ts"] <= topk["ts"] + topk["dur"]
+    profiling.reset_tallies()

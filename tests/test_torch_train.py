@@ -8,6 +8,7 @@ R@10 > 0.3 and land within 0.25 of cdae_tpu's own run.
 """
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -188,6 +189,20 @@ def test_trace_dir_writes_a_chrome_trace(tsplit, tmp_path):
                     trace_dir=str(tmp_path / "tr"))
     solver.train(train)
     assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
+    # the program's spans are in it (host events), each step inside its
+    # epoch
+    with open(tmp_path / "tr" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+
+    def ranges(name):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("name") == name and e.get("ph") == "X"
+                and not str(e.get("cat")).startswith("gpu_")]
+
+    epochs, steps = ranges("cdae.epoch"), ranges("cdae.step")
+    assert len(epochs) == 1
+    assert len(steps) == -(-train.num_users // CFG["batch_size"])
+    assert all(epochs[0][0] <= s and e <= epochs[0][1] for s, e in steps)
 
 
 def test_cli_train_writes_a_checkpoint_cdae_tpu_reads(movielens_path,
