@@ -103,6 +103,7 @@ class Interactions:
         self.item_vocab = item_vocab
         self._csr_user: Optional[CSR] = None
         self._csr_item: Optional[CSR] = None
+        self._csr_device: Dict[object, tuple] = {}
 
     @classmethod
     def from_text(
@@ -241,6 +242,26 @@ class Interactions:
                     self.users, self.items, self.ratings, self.num_users
                 )
         return self._csr_user
+
+    def csr_on(self, device, upload: Callable) -> tuple:
+        """The user CSR's ``indptr`` (int64) and ``indices`` (int32) on
+        ``device``, copied there once a device by ``upload`` (host array ->
+        tensor on ``device``); the ratings stay on the host. The copies are
+        kept as long as this object (at ML-20M 65.3 MB a device), under the
+        device with its index resolved, so ``cuda`` and ``cuda:0`` share
+        one; an object made by ``with_dims`` has a CSR, and copies, of its
+        own."""
+        import torch
+
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device not in self._csr_device:
+            csr = self.csr()
+            self._csr_device[device] = (
+                upload(csr.indptr.astype(np.int64, copy=False)),
+                upload(csr.indices.astype(np.int32, copy=False)))
+        return self._csr_device[device]
 
     def csr_by_item(self) -> CSR:
         """Per-item sorted user lists."""

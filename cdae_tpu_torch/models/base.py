@@ -19,8 +19,8 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from cdae_tpu_torch.data.dataset import (Interactions, PaddedUserBatch,
-                                          rows_from_csr)
+from cdae_tpu_torch.data.dataset import Interactions, PaddedUserBatch
+from cdae_tpu_torch.ops.pallas_kernels import csr_rows
 from cdae_tpu_torch.ops.topk import topk_unrated
 from cdae_tpu_torch.utils.profiling import count, profiler_active, span
 
@@ -283,6 +283,22 @@ class RecsysModel:
         """Pointwise predictions for (user, item) pairs."""
         raise NotImplementedError
 
+    def _rated_rows(self, uids: np.ndarray, d_uids: torch.Tensor,
+                    data: Interactions):
+        """(B, L) int32 rated items, padded with ``num_items``, and their
+        bool mask on the model's device for the users ``uids`` (``d_uids``:
+        the same, int64 on the device): the rows ``rows_from_csr`` gives,
+        built there from the device copy of ``data``'s CSR. L (the longest
+        row, at least 1) comes from the host CSR, so nothing waits for the
+        device."""
+        indptr = data.csr().indptr
+        lengths = indptr[uids + 1] - indptr[uids]
+        L = max(int(lengths.max()) if len(uids) else 1, 1)
+        d_indptr, d_indices = data.csr_on(self.device, self._tensor)
+        rows = csr_rows(d_indptr, d_indices, d_uids, L, data.num_items)
+        count("rows_device", 1)
+        return rows
+
     def recommend(self, state, uids, train_data: Interactions,
                   k: int = 10) -> torch.Tensor:
         """Top-k UNRATED item ids per user, the library's serving call
@@ -291,17 +307,21 @@ class RecsysModel:
         rated rows from ``train_data``, then ``topk_unrated``, which ties
         like ``lax.top_k``: the lower id first). ``train_data`` gives the
         rated sets to exclude and the input of models that score from the
-        rated rows (CDAE). Returns (B, k) int32 ids on the model's device;
+        rated rows (CDAE). The rated rows are built on the model's device
+        (``csr_rows``) from ``train_data``'s CSR, copied there by the first
+        request and kept. Returns (B, k) int32 ids on the model's device;
         id == num_items marks a padding slot (catalog smaller than k)."""
         with span("serve.request"):
-            uids = np.asarray(uids, dtype=np.int32).reshape(-1)
+            uids = np.array(uids, dtype=np.int64).reshape(-1)  # contiguous
             with span("serve.rows"):
-                rated, _, mask, _ = rows_from_csr(train_data.csr(), uids,
-                                                  train_data.num_items)
-                rated = self._tensor(rated)
-                mask = self._tensor(mask)
+                if len(uids) and (uids.min() < 0
+                                  or uids.max() >= train_data.num_users):
+                    raise IndexError(
+                        f"uids outside [0, {train_data.num_users})")
+                d_uids = self._tensor(uids)  # one copy for rows and scores
+                rated, mask = self._rated_rows(uids, d_uids, train_data)
             with span("serve.scores"):
-                scores = self.batch_scores(state, uids, rated, mask)
+                scores = self.batch_scores(state, d_uids, rated, mask)
                 del mask  # free the device mask before the top-k
             with span("serve.topk"):
                 ids, _ = topk_unrated(scores, rated, k)

@@ -49,6 +49,7 @@ _SIGNATURES = {
     "cdae_scatter_plan": (_P, _I, _I, _P, _P, _P, _P),
     "cdae_scatter_reduce": (_P, _P, _P, _P) + (_I,) * 5 + (_P,),
     "cdae_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "cdae_csr_rows": (_P,) * 5 + (_I,) * 3 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -29,6 +29,10 @@ Port of cdae_tpu/ops/pallas_kernels.py (every Pallas kernel):
                          atomics)
   gather_rows_mxu        table[idx], zero rows for ids   csrc/gather_rows.cu
                          out of range
+  csr_rows               a request's padded rated rows   csrc/csr_rows.cu
+                         from a device-resident CSR (no
+                         Pallas kernel: cdae_tpu builds
+                         them on the host)
 
 The fused dense train step (B4) has its own module, ops/cdae_fused.py.
 
@@ -983,3 +987,57 @@ def gather_rows_mxu(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 gather_rows_mxu.launches = 0
+
+
+# ------------------------------------------------------ rows from a CSR ----
+
+def csr_rows_plain(indptr: torch.Tensor, indices: torch.Tensor,
+                   uids: torch.Tensor, L: int, num_items: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``csr_rows``: the row starts and lengths gathered
+    from ``indptr``, an ``arange(L)`` against them, and the items gathered
+    where a column lies inside its row."""
+    start = indptr[uids]
+    col = torch.arange(L, device=indptr.device)
+    mask = col[None, :] < (indptr[uids + 1] - start)[:, None]
+    if indices.numel() == 0:
+        return torch.full(mask.shape, num_items, dtype=torch.int32,
+                          device=indptr.device), mask
+    src = torch.where(mask, start[:, None] + col[None, :], 0)
+    return torch.where(mask, indices[src], num_items), mask
+
+
+def csr_rows(indptr: torch.Tensor, indices: torch.Tensor,
+             uids: torch.Tensor, L: int, num_items: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, L) int32 ``items`` and bool ``mask`` of the users ``uids`` (B,)
+    int64 from a user CSR, ``indptr`` (U+1,) int64 and ``indices`` (nnz,)
+    int32: each row's items in CSR order, padded with ``num_items``, and
+    True on the row's own columns, as ``data.dataset.rows_from_csr`` gives
+    them. Every uid lies in [0, U) and no row is longer than ``L``; the
+    caller checks both on the host, where the CSR's indptr already is."""
+    if not _on_cuda(indptr):
+        return csr_rows_plain(indptr, indices, uids, L, num_items)
+    device = indptr.device
+    _require(indptr, "indptr", torch.int64, (None,), device)
+    _require(indices, "indices", torch.int32, (None,), device)
+    _require(uids, "uids", torch.int64, (None,), device)
+    B = uids.shape[0]
+    if L < 1 or B * L >= 2**31 or num_items >= 2**31:
+        raise ValueError(f"B*L = {B}*{L}, num_items = {num_items}: the "
+                         "kernel takes L >= 1 and < 2**31 of each")
+    items = torch.empty((B, L), dtype=torch.int32, device=device)
+    mask = torch.empty((B, L), dtype=torch.bool, device=device)
+    if B == 0:
+        return items, mask
+    from cdae_tpu_torch.ops import cuda_lib
+
+    rc = cuda_lib.lib().cdae_csr_rows(
+        indptr.data_ptr(), indices.data_ptr(), uids.data_ptr(),
+        items.data_ptr(), mask.data_ptr(), B, L, num_items, _stream(device))
+    cuda_lib.check(rc, "csr_rows")
+    csr_rows.launches += 1
+    return items, mask
+
+
+csr_rows.launches = 0

@@ -15,7 +15,16 @@ Phases, each printed as one JSON line:
              over each training path's dense tables in one launch, beside
              the same tables as one-table calls, the library's AdaGrad over
              the list and the launch floor (an empty kernel's device time)
-  serving path (counts from 0 before slice, read after dense_1m):
+  kernel_csr_rows -- recommend's rated rows (csr_rows) against its plain
+             version on the card and the host's rows_from_csr, bit for bit,
+             at a serve_batch request (1,024 users, L = 1,268) and a
+             serve_online one (32 users, L = 316), repeated uids included,
+             from a CSR of ML-20M's 138,493 x 26,744 with rows drawn like
+             its cells'; span, device time, the plain version's, the host
+             rows and their two copies it replaced (host_rows_ms), and the
+             bytes bound
+  serving path (counts from 0 before slice, read after dense_1m; B3, the
+  fused top-k kernels, csr_rows):
     slice   -- ML-1M-scale CDAE serving at D=50 through the CLI --task test
                (dense_R encode + decode kernel + TOPN), checked against the
                plain path on the same checkpoint
@@ -23,6 +32,9 @@ Phases, each printed as one JSON line:
                no dense_R, so the fused CSR top-k kernel serves
     dense_1m-- 1,000 users x 1,000,000 items, batch_size 64 so the 1 GB
                int8 dense_R stays resident: the fused dense top-k kernel
+               (each 1M-item run also: recommend(k=10) for 256 users, its
+               rows built by csr_rows, the same ids as the rows built on
+               the host by rows_from_csr and copied over)
   verify  -- one batch of each 1M-item run: kernel ids against the plain
              streaming scan
   training path (counts from 0 before, read after):
@@ -318,6 +330,11 @@ KERNELS = {
     "gather_rows_mxu": ("pallas_kernels", "cdae_tpu_torch/csrc/gather_rows.cu",
                         "cdae_tpu/ops/pallas_kernels.py:856",
                         ("warp_mxu", "mf_training")),
+    # recommend's rated rows: the serving path's recommend and the
+    # leftovers' recommend phase
+    "csr_rows": ("pallas_kernels", "cdae_tpu_torch/csrc/csr_rows.cu",
+                 "no TPU kernel (cdae_tpu/data/dataset.py:397 rows_from_csr "
+                 "is host numpy)", ("serving", "leftovers")),
 }
 
 
@@ -357,6 +374,7 @@ def read_counts(path: str, launches: dict, failed: list,
 SHAPE_KEYS = ("B", "I", "D", "k", "nn", "shape", "case", "tables", "P", "N",
               "C", "path")
 MEASURE_KEYS = ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+                "host_rows_ms",
                 "library", "library_device_ms", "launch_floor_ms",
                 "one_table_calls_ms", "one_table_calls_device_ms",
                 "bound_ms", "bound_by", "bound_f32_ms")
@@ -924,13 +942,34 @@ def phase_1m(torch, name, U, batch_size, expect_dense, held):
     n_val = ev._cache[0]
     held[name] = (model, state, ev)
     cols = [warm[c] for c in metrics.TOPN_COLUMNS]
+    same = _recommend_vs_host_rows(torch, model, state, train)
     return dict(phase=name, users=U, items=I, D=50, val_users=n_val,
                 dense_R=expect_dense, setup_s=setup_s,
                 first_test_time_s=first["TestTime"],
                 test_time_s=warm["TestTime"],
                 users_per_s=n_val / warm["TestTime"],
                 topn=dict(zip(metrics.TOPN_COLUMNS, cols)),
-                ok=all(map(_finite, cols)))
+                recommend_equal_host_rows=same,
+                ok=all(map(_finite, cols)) and same)
+
+
+def _recommend_vs_host_rows(torch, model, state, train, B=256):
+    """recommend(k=10) for the first ``B`` users (rows by csr_rows) against
+    the same scores and top-k over rows built on the host by
+    rows_from_csr and copied over: the same ids, bit for bit."""
+    import numpy as np
+
+    from cdae_tpu_torch.data.dataset import rows_from_csr
+    from cdae_tpu_torch.ops.topk import topk_unrated
+
+    uids = np.arange(min(B, train.num_users), dtype=np.int32)
+    ids = model.recommend(state, uids, train, k=10)
+    rated, _, mask, _ = rows_from_csr(train.csr(), uids, train.num_items)
+    rated = torch.as_tensor(rated, device="cuda")
+    scores = model.batch_scores(state, uids, rated,
+                                torch.as_tensor(mask, device="cuda"))
+    want, _ = topk_unrated(scores, rated, 10)
+    return bool(torch.equal(ids, want))
 
 
 def phase_verify(torch, held):
@@ -1616,6 +1655,85 @@ def phase_kernel_gather(torch, results):
             bad.append(f"gather_rows_mxu {name}")
     if bad:
         raise AssertionError(f"B9 is not exact: {bad}")
+
+
+def phase_kernel_csr_rows(torch, results):
+    """csr_rows at a serve_batch request (1,024 users, L = 1,268) and a
+    serve_online one (32 users, L = 316) from a CSR of ML-20M's shape with
+    rows drawn like its cells' (20 + a geometric tail of mean 125, capped
+    at 1,268): bit for bit its plain version on the card and the host's
+    rows_from_csr, repeated uids included; span, device time, the plain
+    version's, and the host rows and their two copies it replaced."""
+    import numpy as np
+
+    import cdae_tpu_torch.ops.pallas_kernels as P
+    from cdae_tpu_torch.data.dataset import Interactions, rows_from_csr
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    U, I = 138_493, 26_744
+    lengths = np.minimum(20 + rng.geometric(1 / 125, U), 1268)
+    lengths[U // 2], lengths[U // 3] = 1268, 316
+    items = rng.integers(0, I, int(lengths.sum()), dtype=np.int32)
+    data = Interactions.from_arrays(np.repeat(np.arange(U), lengths), items,
+                                    num_users=U, num_items=I)
+    csr = data.csr()
+    indptr, indices = data.csr_on(dev, lambda a: torch.as_tensor(a,
+                                                                 device=dev))
+    row_len = np.diff(csr.indptr)
+    bad = []
+    for case, B, longest, top in (("serve_batch", 1024, U // 2, 1268),
+                                  ("serve_online", 32, U // 3, 316)):
+        short = np.flatnonzero(row_len <= top)
+        uids = rng.choice(short, B).astype(np.int32)
+        uids[B // 3] = longest
+        uids[-1] = uids[0]
+        L = int(row_len[uids].max())
+        want_items, _, want_mask, _ = rows_from_csr(csr, uids, I)
+        d_uids = torch.as_tensor(uids.astype(np.int64), device=dev)
+        got_items, got_mask = P.csr_rows(indptr, indices, d_uids, L, I)
+        plain_items, plain_mask = P.csr_rows_plain(indptr, indices, d_uids,
+                                                   L, I)
+        torch.cuda.synchronize()
+        exact_plain = bool(torch.equal(got_items, plain_items)
+                           and torch.equal(got_mask, plain_mask))
+        exact_host = bool(np.array_equal(got_items.cpu().numpy(), want_items)
+                          and np.array_equal(got_mask.cpu().numpy(),
+                                             want_mask))
+
+        def host_rows():
+            a, _, m, _ = rows_from_csr(csr, uids, I)
+            torch.as_tensor(a, device=dev)
+            torch.as_tensor(m, device=dev)
+
+        host = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host_rows()
+            torch.cuda.synchronize()
+            host.append(time.perf_counter() - t0)
+        row = dict(phase="kernel_csr_rows", kernel="csr_rows", case=case,
+                   shape=[B, L], exact_plain=exact_plain,
+                   exact_host=exact_host,
+                   ms=median_ms(lambda: P.csr_rows(indptr, indices, d_uids,
+                                                   L, I)),
+                   device_ms=device_ms(lambda: P.csr_rows(
+                       indptr, indices, d_uids, L, I)),
+                   plain_ms=median_ms(lambda: P.csr_rows_plain(
+                       indptr, indices, d_uids, L, I)),
+                   host_rows_ms=1e3 * statistics.median(host),
+                   # the items and mask written (5 B a slot), the rows'
+                   # CSR entries read once, each uid and its two indptr
+                   # entries read once
+                   **bound(5.0 * B * L + 4.0 * int(row_len[uids].sum())
+                           + 24.0 * B, 0.0))
+        emit(row)
+        record(results, "csr_rows", row)
+        if L != top or not (exact_plain and exact_host):
+            bad.append(f"csr_rows {case} (L {L})")
+    if bad:
+        raise AssertionError(f"csr_rows is not exact: {bad}")
 
 
 FISM_TRAIN = ["--task", "train", "--method", "FISM", "--num_dim", "10",
@@ -4058,6 +4176,7 @@ def main() -> int:
     run("build", build)
     run("kernel", lambda: phase_kernels(torch, P, results))
     run("kernel_train", lambda: phase_train_kernels(torch, results))
+    run("kernel_csr_rows", lambda: phase_kernel_csr_rows(torch, results))
 
     launches = {}
     held, n_users = {}, {}

@@ -21,7 +21,9 @@ back), ALS/WRMF and ItemCF/UserCF, and the feature-group models
 against one on the CPU from the same injected draws, two runs bit for bit,
 no fall-back), and the single-card leftovers (CDAE's recommend through B3
 against the plain decode, a sweep point's epoch with B1 and B2 against the
-plain versions, the host loader built and parsing on the card's host).
+plain versions, the host loader built and parsing on the card's host), and
+serving's rated rows (``csr_rows`` bit for bit against its plain version
+and the host rows, its refusals, the device CSR copied once).
 Every test is marked ``cuda`` and skips when torch.cuda.is_available() is
 False (the kernels have no CPU mode).
 
@@ -1588,13 +1590,13 @@ def test_warp_violator_select_row_offset_cuts_the_whole_batch(
 
 @pytest.mark.cuda
 def test_recommend_spans_and_h2d_bytes_on_the_card(cuda, tmp_path):
-    """Under a profiler, a recommend on the card tallies its spans and
-    counts as ``h2d_bytes`` the host arrays it copies (the uids, the rated
-    rows and their mask); ``trace`` synchronises before it stops, so its
-    file holds the request's last kernel, launched inside ``serve.topk``."""
+    """Under a profiler, a recommend on the card tallies its spans, counts
+    its rows built on the card in ``rows_device``, and as ``h2d_bytes`` the
+    host arrays it copies (the uids only); ``trace`` synchronises before it
+    stops, so its file holds the request's last kernel, launched inside
+    ``serve.topk``."""
     import json
 
-    from cdae_tpu_torch.data.dataset import rows_from_csr
     from cdae_tpu_torch.models.cdae import CDAE, CDAEConfig
     from cdae_tpu_torch.utils import profiling
 
@@ -1608,9 +1610,10 @@ def test_recommend_spans_and_h2d_bytes_on_the_card(cuda, tmp_path):
     with profiling.trace(str(tmp_path)):
         model.recommend(state, uids, train, k=10)
     tallies = profiling.tallies()
-    _, _, mask, _ = rows_from_csr(train.csr(), uids, train.num_items)
-    assert tallies.counters["h2d_bytes"] == (uids.nbytes + 4 * mask.size
-                                             + mask.nbytes)
+    # the uids alone, int64, one copy for csr_rows and batch_scores; the
+    # rows are built on the card from the CSR the warm request copied there
+    assert tallies.counters["h2d_bytes"] == 8 * len(uids)
+    assert tallies.counters["rows_device"] == 1
     assert {n: c for n, (c, _) in tallies.spans.items()} == {
         "serve.request": 1, "serve.rows": 1, "serve.scores": 1,
         "serve.topk": 1}
@@ -1627,3 +1630,125 @@ def test_recommend_spans_and_h2d_bytes_on_the_card(cuda, tmp_path):
                   == last["args"]["correlation"])
     assert topk["ts"] <= launch["ts"] <= topk["ts"] + topk["dur"]
     profiling.reset_tallies()
+
+
+def _ml20m_like_csr(U, I, longest, seed):
+    """A user CSR with rows drawn like the ML-20M cells' (20 + a geometric
+    tail of mean ~125, items by a power law without replacement), a few
+    empty rows, and one row of ``longest`` items."""
+    from cdae_tpu_torch.data.dataset import Interactions
+
+    rng = np.random.default_rng(seed)
+    lengths = np.minimum(20 + rng.geometric(1 / 125, U), longest)
+    lengths[rng.choice(U, 8, replace=False)] = 0
+    lengths[U // 2] = longest
+    p = 1.0 / np.arange(1, I + 1) ** 0.9
+    p /= p.sum()
+    items = np.concatenate([rng.choice(I, n, replace=False, p=p)
+                            for n in lengths])
+    return Interactions.from_arrays(np.repeat(np.arange(U), lengths), items,
+                                    num_users=U, num_items=I)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1024, 32])
+def test_csr_rows_equals_plain_and_host_rows(cuda, B):
+    """``csr_rows`` against its plain version on the card and the host's
+    ``rows_from_csr``, bit for bit, at a request of 1,024 users with the
+    longest row of 1,268 and of 32 users, repeated uids included."""
+    from cdae_tpu_torch.data.dataset import rows_from_csr
+
+    data = _ml20m_like_csr(4096, 26744, 1268, seed=B)
+    rng = np.random.default_rng(B + 1)
+    uids = rng.choice(4096, B).astype(np.int32)
+    uids[B // 3] = 4096 // 2  # the longest row
+    uids[-1] = uids[0]
+    items, _, mask, _ = rows_from_csr(data.csr(), uids, data.num_items)
+    assert items.shape == (B, 1268)
+    indptr, indices = data.csr_on(cuda, lambda a: torch.as_tensor(a,
+                                                                 device=cuda))
+    d_uids = torch.as_tensor(uids.astype(np.int64), device=cuda)
+    before = P.csr_rows.launches
+    got_items, got_mask = P.csr_rows(indptr, indices, d_uids, 1268,
+                                     data.num_items)
+    torch.cuda.synchronize()
+    assert P.csr_rows.launches == before + 1
+    plain_items, plain_mask = P.csr_rows_plain(indptr, indices, d_uids, 1268,
+                                               data.num_items)
+    assert got_items.dtype == torch.int32 and got_mask.dtype == torch.bool
+    assert torch.equal(got_items, plain_items)
+    assert torch.equal(got_mask, plain_mask)
+    np.testing.assert_array_equal(got_items.cpu().numpy(), items)
+    np.testing.assert_array_equal(got_mask.cpu().numpy(), mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["uids_strided", "uids_int32",
+                                 "indices_int64", "indptr_int32",
+                                 "indptr_strided"])
+def test_csr_rows_raises_on_what_the_kernel_does_not_take(cuda, bad):
+    indptr = torch.tensor([0, 2, 2, 5], dtype=torch.int64, device=cuda)
+    indices = torch.tensor([1, 3, 0, 2, 4], dtype=torch.int32, device=cuda)
+    uids = torch.tensor([2, 0, 1, 2], dtype=torch.int64, device=cuda)
+    if bad == "uids_strided":
+        uids = uids[::2]
+    elif bad == "uids_int32":
+        uids = uids.int()
+    elif bad == "indices_int64":
+        indices = indices.long()
+    elif bad == "indptr_int32":
+        indptr = indptr.int()
+    else:
+        indptr = torch.stack([indptr, indptr], 1)[:, 0]
+    before = P.csr_rows.launches
+    with pytest.raises((TypeError, ValueError)):
+        P.csr_rows(indptr, indices, uids, 3, 5)
+    assert P.csr_rows.launches == before
+
+
+@pytest.mark.cuda
+def test_the_device_csr_is_uploaded_once(cuda):
+    """The first recommend on an ``Interactions`` copies its CSR (indptr
+    int64, indices int32) to the card; a second copies the uids alone."""
+    from cdae_tpu_torch.models.cdae import CDAE, CDAEConfig
+    from cdae_tpu_torch.utils import profiling
+
+    train, _ = _lowrank_split()
+    model = CDAE(CDAEConfig(num_dim=50, batch_size=64), device=cuda)
+    state = model.reset(train, seed=3)
+    uids = np.arange(64, dtype=np.int32)
+    # warm on a copy: the model's own first-call work, not this CSR's
+    model.recommend(state, uids, train.with_dims(train.num_users,
+                                                 train.num_items), k=10)
+    torch.cuda.synchronize()
+    csr = train.csr()
+    reads = []
+    for _ in range(2):
+        profiling.reset_tallies()
+        with torch.profiler.profile():
+            model.recommend(state, uids, train, k=10)
+        reads.append(profiling.tallies().counters)
+    profiling.reset_tallies()
+    per_request = 8 * len(uids)  # the int64 uids
+    assert reads[0]["h2d_bytes"] == (per_request + 8 * len(csr.indptr)
+                                     + 4 * len(csr.indices))
+    assert reads[1]["h2d_bytes"] == per_request
+    assert reads[0]["rows_device"] == reads[1]["rows_device"] == 1
+
+
+@pytest.mark.cuda
+def test_the_device_csr_is_kept_once_for_cuda_and_its_index(cuda):
+    """``cuda`` and ``cuda:<current>`` name one card, so they share one
+    device copy of the CSR."""
+    train, _ = _lowrank_split()
+    copies = []
+
+    def upload(a):
+        copies.append(a.dtype)
+        return torch.as_tensor(a, device=cuda)
+
+    here = torch.device("cuda", torch.cuda.current_device())
+    first = train.csr_on("cuda", upload)
+    again = train.csr_on(here, upload)
+    assert copies == [np.int64, np.int32]
+    assert first[0] is again[0] and first[1] is again[1]

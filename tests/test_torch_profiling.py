@@ -2,8 +2,8 @@
 the check that decides whether a profiler runs, the one range a span
 opens, the shared no-op context and untouched tallies without one, the
 spans of a training epoch (sparse, dense and fused routes) and of a
-``recommend``, nested as the program calls them, the set-up phases, the
-``h2d_bytes`` counter, and the benchmark's readers of the tallies
+``recommend``, nested as the program calls them, the ``rows_device``
+counter of its rows, the set-up phases, the ``h2d_bytes`` counter, and the benchmark's readers of the tallies
 (benchmark/metrics/)."""
 
 import types
@@ -155,6 +155,21 @@ def test_a_request_traces_its_rows_scores_and_topk(data):
         ends.append(child)
     assert ends == sorted(ends)  # rows, then scores, then top-k
     assert set(prof.tallies().spans) == {"serve.request", *SERVE_CHILDREN}
+
+
+def test_rows_device_counts_one_per_request(data):
+    """Every request builds its rated rows on the model's device: under a
+    profiler ``rows_device`` counts one a ``recommend``, as many as
+    ``serve.request``; with none it counts nothing."""
+    model = _model("sparse")
+    state = model.reset(data, seed=0)
+    model.recommend(state, np.arange(8), data, k=5)
+    assert "rows_device" not in prof.tallies().counters
+    with torch.profiler.profile():
+        for n in (8, 1, 24):
+            model.recommend(state, np.arange(n)[::-1], data, k=5)
+    t = prof.tallies()
+    assert t.counters["rows_device"] == t.spans["serve.request"][0] == 3
 
 
 def test_set_up_phases_tally_once_per_build(data):
