@@ -83,7 +83,12 @@ from cdae_tpu_torch.solver.optimizer import (
     dense_adagrad_steps,
     row_adagrad_delta,
 )
-from cdae_tpu_torch.utils.profiling import phase, span
+from cdae_tpu_torch.utils.profiling import (
+    count,
+    phase,
+    profiler_active,
+    span,
+)
 from cdae_tpu_torch.utils.random import step_seed
 
 _LOSS_STREAM = -1  # the seed stream of data_loss draws (not the solver's)
@@ -1154,24 +1159,28 @@ def _train_step(
                 neg_sum = _aggregate(ids, (table_vals, bp_vals), n_tbl, sm,
                                      neg_sum)
         if cfg.neg_pool:
-            K = int(cfg.neg_pool)
-            pool = pool.long()
-            dec_pool = item_rows(dec_table, pool)  # (K, D)
-            bp_pool = item_rows(params["b_prime"], pool)
-            pred_pool = _mm(z, dec_pool.t(), cfg).to(dt) + bp_pool[None, :]
-            rated = is_rated(items, lengths, pool)  # (B, K)
-            L_u = lengths.to(torch.float32)
-            q_u = torch.clamp(cfg.num_neg * L_u * I
-                              / (K * torch.clamp(I - L_u, min=1.0)), 0.0, 1.0)
-            sel = ((u_sel < q_u[:, None]) & ~rated & live_user).to(dt)
-            g_pool = loss.gradient(pred_pool, 0.0) * sel
-            touch = sel.sum(dim=0)  # (K,)
-            bp_pool_vals = g_pool.sum(dim=0) + lam * bp_pool * touch
-            table_pool_vals = g_pool.t() @ z + lam * dec_pool * touch[:, None]
-            hidden_grad = hidden_grad + g_pool @ dec_pool
-            add_negatives(pool, table_pool_vals, bp_pool_vals,
-                          torch.ones((K,), dtype=torch.bool,
-                                     device=pool.device))
+            with span("cdae.step.pool"):
+                K = int(cfg.neg_pool)
+                pool = pool.long()
+                dec_pool = item_rows(dec_table, pool)  # (K, D)
+                bp_pool = item_rows(params["b_prime"], pool)
+                pred_pool = (_mm(z, dec_pool.t(), cfg).to(dt)
+                             + bp_pool[None, :])
+                rated = is_rated(items, lengths, pool)  # (B, K)
+                L_u = lengths.to(torch.float32)
+                q_u = torch.clamp(cfg.num_neg * L_u * I
+                                  / (K * torch.clamp(I - L_u, min=1.0)),
+                                  0.0, 1.0)
+                sel = ((u_sel < q_u[:, None]) & ~rated & live_user).to(dt)
+                g_pool = loss.gradient(pred_pool, 0.0) * sel
+                touch = sel.sum(dim=0)  # (K,)
+                bp_pool_vals = g_pool.sum(dim=0) + lam * bp_pool * touch
+                table_pool_vals = (g_pool.t() @ z
+                                   + lam * dec_pool * touch[:, None])
+                hidden_grad = hidden_grad + g_pool @ dec_pool
+                add_negatives(pool, table_pool_vals, bp_pool_vals,
+                              torch.ones((K,), dtype=torch.bool,
+                                         device=pool.device))
         else:
             # num_neg chunks of (B, L): one (B, L, D) gather at a time, not
             # (B, num_neg * L, D) (cdae_tpu measured a 10.5 GB temporary at
@@ -1218,6 +1227,9 @@ def _train_step(
             n = ids.numel()
             vals = vals.reshape((n,) + tuple(vals.shape[ids.dim():]))
             live = live.reshape((n,) + (1,) * (vals.dim() - 1))
+            if profiler_active():
+                count("table_bytes", _adagrad_bytes(params, name,
+                                                    vals.numel()))
             # dead slots (padding, the sentinel) add nothing to a clipped id
             row_adagrad_delta(params[name], params[name + "_ag"],
                               ids.reshape(-1).clamp(0, I - 1), vals, live,
@@ -1243,6 +1255,9 @@ def _train_step(
         dense["b"] = d_b
     if coll is not None:
         dense = coll.data_sum_all(dense)
+    if profiler_active():
+        count("table_bytes", sum(_adagrad_bytes(params, name, g.numel())
+                                 for name, g in dense.items() if name != "b"))
     with span("cdae.step.update"):
         # every dense gradient is taken: one sweep (one kernel launch)
         dense_adagrad_steps(
@@ -1259,6 +1274,14 @@ def _train_step(
                 if cfg.linear_function else None,
             })
     return params
+
+
+def _adagrad_bytes(params, name: str, n: int) -> int:
+    """Bytes an AdaGrad apply moves over ``n`` elements of table ``name``:
+    each element's parameter and accumulator read and written, its f32
+    gradient read (as benchmark/harness/counts.py reckons B2's)."""
+    return n * (2 * params[name].element_size()
+                + 2 * params[name + "_ag"].element_size() + 4)
 
 
 def _aggregate(ids, cols, I: int, mode: str,

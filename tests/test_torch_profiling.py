@@ -1,9 +1,10 @@
 """The port's spans, phases and counters (cdae_tpu_torch/utils/profiling.py):
 the check that decides whether a profiler runs, the one range a span
 opens, the shared no-op context and untouched tallies without one, the
-spans of a training epoch (sparse, dense and fused routes) and of a
-``recommend``, nested as the program calls them, the ``rows_device``
-counter of its rows, the set-up phases, the ``h2d_bytes`` counter, and the benchmark's readers of the tallies
+spans of a training epoch (sparse, dense and fused routes; the pool's
+span of a pooled step) and of a ``recommend``, nested as the program
+calls them, the ``table_bytes`` counter of a step's update, the
+``rows_device`` counter of its rows, the set-up phases, the ``h2d_bytes`` counter, and the benchmark's readers of the tallies
 (benchmark/metrics/)."""
 
 import types
@@ -43,6 +44,9 @@ def _model(route):
     kw = {"sparse": dict(dense_mode=False),
           "dense": dict(dense_mode=True),
           "fused": dict(dense_mode=True, fast_rng=True, fused_step=True),
+          "pool": dict(dense_mode=False, neg_pool=16),
+          "pool_rows": dict(dense_mode=False, neg_pool=16, row_update=True),
+          "rows": dict(dense_mode=False, row_update=True),
           }[route]
     return tcdae.CDAE(tcdae.CDAEConfig(**CFG, **kw), device="cpu")
 
@@ -139,6 +143,81 @@ def test_an_epoch_traces_one_step_span_per_step(data, route):
     assert all(c > 0 and s >= 0 for c, s in spans.values())
 
 
+@pytest.mark.parametrize("route", ["pool", "pool_rows", "sparse", "dense",
+                                   "fused"])
+def test_the_pool_span_nests_in_forward_once_a_pooled_step(data, route):
+    """``cdae.step.pool``: once a pooled step, inside its forward span, the
+    pool's aggregation inside it (none with row_update, which aggregates
+    nothing there); on the exact, dense and fused routes never."""
+    model = _model(route)
+    state = model.reset(data, seed=0)
+    model.train_one_iteration(state, seed=1)
+    prof.reset_tallies()
+    with torch.profiler.profile() as p:
+        model.train_one_iteration(state, seed=2)
+    r = _ranges(p)
+    pools = r.get("cdae.step.pool", [])
+    if not route.startswith("pool"):
+        assert not pools and "cdae.step.pool" not in prof.tallies().spans
+        return
+    steps = _steps(model, state)
+    assert len(pools) == prof.tallies().spans["cdae.step.pool"][0] == steps
+    assert all(any(_inside(c, f) for f in r["cdae.step.forward"])
+               for c in pools)
+    scatters = r.get("cdae.step.scatter", [])
+    inner = [c for c in scatters if any(_inside(c, s) for s in pools)]
+    assert len(inner) == (steps if route == "pool" else 0)
+
+
+def _table_bytes_by_hand(model, state):
+    """An epoch's item-table bytes of the AdaGrad apply, from the batches'
+    shapes: every element of W and b' (f32 param, accumulator and
+    gradient: 4 + 4 + 4 + 4 + 4 bytes) each step; with row_update, the
+    rows the step passes instead: the positives' output rows, the
+    negatives' rows, b' at both, the positives' input rows."""
+    I, D = state.num_items, model.cfg.num_dim
+    total = 0
+    for _, items, *_ in state.aux["device_batches"]:
+        if not model.cfg.row_update:
+            total += 20 * I * (D + 1)
+            continue
+        BL = items.numel()
+        negs = (model.cfg.neg_pool if model.cfg.neg_pool
+                else model.cfg.num_neg * BL)
+        total += 20 * ((2 * BL + negs) * D + BL + negs)
+    return total
+
+
+@pytest.mark.parametrize("route", ["pool", "pool_rows", "sparse", "rows"])
+def test_table_bytes_is_reckoned_from_the_tables_shapes(data, route):
+    model = _model(route)
+    state = model.reset(data, seed=0)
+    model.train_one_iteration(state, seed=1)
+    assert "table_bytes" not in prof.tallies().counters
+    with torch.profiler.profile():
+        model.train_one_iteration(state, seed=2)
+    assert prof.tallies().counters["table_bytes"] == _table_bytes_by_hand(
+        model, state)
+
+
+@pytest.mark.parametrize("route", ["pool", "pool_rows"])
+def test_without_a_profiler_a_pooled_epoch_tallies_nothing(data, route,
+                                                           monkeypatch):
+    model = _model(route)
+    state = model.reset(data, seed=0)
+    model.train_one_iteration(state, seed=1)  # builds the cached batches
+    prof.reset_tallies()
+
+    def forbidden(*a, **k):
+        raise AssertionError("a span site read the clock or opened a range")
+
+    monkeypatch.setattr(prof, "time", types.SimpleNamespace(
+        perf_counter=forbidden))
+    monkeypatch.setattr(prof, "_range", forbidden)
+    model.train_one_iteration(state, seed=2)
+    assert prof.tallies() == prof.Tallies({}, {})
+
+
 def test_a_request_traces_its_rows_scores_and_topk(data):
     model = _model("sparse")
     state = model.reset(data, seed=0)
@@ -227,6 +306,10 @@ READINGS = [
     ("setup_data_s", "train", {"cdae.reset": (1, 2.5),
                                "cdae.batches": (1, 0.5)}, {}, 3.0),
     ("setup_data_s", "serve", {"cdae.reset": (1, 2.5)}, {}, 2.5),
+    ("train_pool_host_ms", "train", {"cdae.step": (4, 0.02),
+                                     "cdae.step.pool": (4, 0.008)}, {}, 2.0),
+    ("train_table_bytes_per_step", "train", {"cdae.step": (4, 0.02)},
+     {"table_bytes": 4096}, 1024.0),
 ]
 
 
