@@ -303,14 +303,18 @@ class RecsysModel:
                   k: int = 10) -> torch.Tensor:
         """Top-k UNRATED item ids per user, the library's serving call
         (ref recsys_model_base.hpp:77-104: a per-user heap scan of the
-        whole catalog; here one ``batch_scores`` over the users' padded
-        rated rows from ``train_data``, then ``topk_unrated``, which ties
-        like ``lax.top_k``: the lower id first). ``train_data`` gives the
-        rated sets to exclude and the input of models that score from the
-        rated rows (CDAE). The rated rows are built on the model's device
-        (``csr_rows``) from ``train_data``'s CSR, copied there by the first
-        request and kept. Returns (B, k) int32 ids on the model's device;
-        id == num_items marks a padding slot (catalog smaller than k)."""
+        whole catalog). ``train_data`` gives the rated sets to exclude and
+        the input of models that score from the rated rows (CDAE). The
+        rated rows are built on the model's device (``csr_rows``) from
+        ``train_data``'s CSR, copied there by the first request and kept.
+        The top-k is the model's ``batch_topk`` where it has one and it
+        answers (CDAE's fused decode + top-k over a large catalog, counted
+        in ``topk_fused``); else one ``batch_scores`` over the whole (B, I)
+        slab, then ``topk_unrated``. Both rank alike: the larger score
+        first, the lower id first on equal scores. Returns (B, k) int32 ids
+        on the model's device; id == num_items marks a slot past a user's
+        unrated items (a catalog smaller than k, or a user who rated all
+        but fewer than k of it)."""
         with span("serve.request"):
             uids = np.array(uids, dtype=np.int64).reshape(-1)  # contiguous
             with span("serve.rows"):
@@ -318,11 +322,31 @@ class RecsysModel:
                                   or uids.max() >= train_data.num_users):
                     raise IndexError(
                         f"uids outside [0, {train_data.num_users})")
-                d_uids = self._tensor(uids)  # one copy for rows and scores
+                d_uids = self._tensor(uids)  # one copy for rows and top-k
                 rated, mask = self._rated_rows(uids, d_uids, train_data)
-            with span("serve.scores"):
-                scores = self.batch_scores(state, d_uids, rated, mask)
-                del mask  # free the device mask before the top-k
-            with span("serve.topk"):
-                ids, _ = topk_unrated(scores, rated, k)
+            ids = (self.batch_topk(state, d_uids, rated, mask, k)
+                   if hasattr(self, "batch_topk") else None)
+            if ids is None:
+                with span("serve.scores"):
+                    scores = self.batch_scores(state, d_uids, rated, mask)
+                with span("serve.topk"):
+                    ids, _ = topk_unrated(scores, rated, k)
+            else:
+                count("topk_fused", 1)
+            # no row is longer than rated.shape[1]: only past this can a
+            # user have fewer than k unrated items
+            if state.num_items - rated.shape[1] < k:
+                ids = _past_unrated(ids, rated, mask, state.num_items)
         return ids
+
+
+def _past_unrated(ids: torch.Tensor, rated: torch.Tensor, mask: torch.Tensor,
+                  num_items: int) -> torch.Tensor:
+    """``ids`` (B, k) with num_items in every slot j >= the user's count of
+    unrated items: num_items less the distinct ids of the user's sorted
+    rated row in ``rated`` (B, L) where ``mask``."""
+    new = mask.clone()  # a row's first entry of each id
+    new[:, 1:] &= rated[:, 1:] != rated[:, :-1]
+    unrated = num_items - new.sum(dim=1, keepdim=True)
+    slot = torch.arange(ids.shape[1], device=ids.device)[None, :]
+    return torch.where(slot >= unrated, num_items, ids)

@@ -67,6 +67,7 @@ from cdae_tpu_torch.ops.cdae_fused import (
 from cdae_tpu_torch.ops.corruption import input_scale
 from cdae_tpu_torch.ops.losses import Loss
 from cdae_tpu_torch.ops.pallas_kernels import (
+    _MAX_K,
     decode_scores,
     fused_topk_scores,
     fused_topk_scores_csr,
@@ -424,24 +425,28 @@ class CDAE(RecsysModel):
     def batch_topk(self, state: CDAEState, uids, rated_items, rated_mask,
                    k: int = 10):
         """Top-k unrated ids (B, k) for huge catalogs, or None when
-        B * num_items <= _TOPK_DEFER_CELLS (the evaluator then scores the
-        full (B, I) slab). Modes: 'fused_dense' (kernel reads dense_R rows),
-        'fused_csr' (kernel walks the sorted rated rows), 'streaming'
-        (plain blockwise loop, when the kernels are off)."""
+        B * num_items <= _TOPK_DEFER_CELLS or k is outside [1, _MAX_K] (the
+        caller then scores the full (B, I) slab). Modes: 'fused_dense'
+        (kernel reads dense_R rows), 'fused_csr' (kernel walks the sorted
+        rated rows), 'streaming' (plain blockwise loop, when the kernels are
+        off). The encode runs in span ``serve.scores``, the top-k in
+        ``serve.topk``, as ``recommend``'s slab route names its halves."""
         B = len(uids)
-        if B * state.num_items <= _TOPK_DEFER_CELLS:
+        if B * state.num_items <= _TOPK_DEFER_CELLS or not 1 <= k <= _MAX_K:
             return None
         mode = ("fused_dense" if self.cfg.use_pallas and "dense_R" in state.aux
                 else "fused_csr" if self.cfg.use_pallas
                 else "streaming")
-        return _batch_topk_impl(
-            state.params,
-            self._tensor(uids, torch.long),
-            self._tensor(rated_items),
-            self._tensor(rated_mask),
-            state.aux.get("dense_R") if mode == "fused_dense" else None,
-            cfg=self.cfg, mode=mode, k=k,
-        )
+        uids = self._tensor(uids, torch.long)
+        rated_items = self._tensor(rated_items)
+        with span("serve.scores"):
+            z = _serve_hidden(state.params, uids, rated_items,
+                              self._tensor(rated_mask), cfg=self.cfg)
+        with span("serve.topk"):
+            return _topk_from_hidden(
+                z, state.params, uids, rated_items,
+                state.aux.get("dense_R") if mode == "fused_dense" else None,
+                cfg=self.cfg, mode=mode, k=k)
 
     def user_representations(self, state: CDAEState) -> np.ndarray:
         """Hidden codes for all users, in uid order."""
@@ -562,29 +567,26 @@ def _dense_scores(params, dense_R, uids, *, cfg: CDAEConfig):
     return _decode(params, _finish_hidden(h, params, user_rows, cfg), cfg)
 
 
-def _batch_scores(params, uids, rated_items, rated_mask, *, cfg: CDAEConfig):
-    """(B, I) decoder scores from the uncorrupted padded rated rows."""
+def _serve_hidden(params, uids, rated_items, rated_mask, *,
+                  cfg: CDAEConfig) -> torch.Tensor:
+    """(B, D) hidden codes of the uncorrupted padded rated rows (scale 1)."""
     in_mask = (torch.zeros_like(rated_mask) if cfg.corruption_ratio == 1.0
                else rated_mask)
-    z = _hidden(params, uids, rated_items, in_mask, 1.0, cfg)
-    return _decode(params, z, cfg)
+    return _hidden(params, uids, rated_items, in_mask, 1.0, cfg)
 
 
-def _batch_topk_impl(params, uids, rated_items, rated_mask, dense_R, *,
-                     cfg: CDAEConfig, mode: str, k: int) -> torch.Tensor:
-    """Hidden encode + blockwise decode/top-k -> (B, k) ids. ``mode``:
-    'fused_dense' (kernel masks from dense_R[uids] int8 rows), 'fused_csr'
-    (kernel masks from the sorted padded rated rows), 'streaming' (plain
-    blockwise loop)."""
-    z = _hidden(
-        params,
-        uids,
-        rated_items,
-        (torch.zeros_like(rated_mask) if cfg.corruption_ratio == 1.0
-         else rated_mask),
-        1.0,
-        cfg,
-    )
+def _batch_scores(params, uids, rated_items, rated_mask, *, cfg: CDAEConfig):
+    """(B, I) decoder scores from the uncorrupted padded rated rows."""
+    return _decode(params, _serve_hidden(params, uids, rated_items,
+                                         rated_mask, cfg=cfg), cfg)
+
+
+def _topk_from_hidden(z, params, uids, rated_items, dense_R, *,
+                      cfg: CDAEConfig, mode: str, k: int) -> torch.Tensor:
+    """Blockwise decode/top-k of hidden codes ``z`` -> (B, k) ids.
+    ``mode``: 'fused_dense' (kernel masks from dense_R[uids] int8 rows),
+    'fused_csr' (kernel masks from the sorted padded rated rows),
+    'streaming' (plain blockwise loop)."""
     table = params["V"] if cfg.asymmetric else params["W"]
     bp = params["b_prime"]
     if mode == "streaming":

@@ -232,13 +232,15 @@ class ShardedCDAE(_Sharded):
         on its rated ids as local columns (the kernels on), else the plain
         streaming loop -- the single-device ``batch_topk``'s routes. An
         uneven catalog (I % n_model != 0) returns None on every rank, as in
-        cdae_tpu: the evaluator then takes ``batch_scores``."""
+        cdae_tpu, and so does a k outside [1, _MAX_K]: the evaluator and
+        ``recommend`` then take ``batch_scores``."""
         from cdae_tpu_torch.ops.pallas_kernels import (
-            fused_topk_scores, fused_topk_scores_csr, streaming_topk_scores)
+            _MAX_K, fused_topk_scores, fused_topk_scores_csr,
+            streaming_topk_scores)
 
         I = state.num_items
-        if I % self.mesh.shape["model"] != 0:
-            return None  # uneven item shards: the evaluator's scores path
+        if I % self.mesh.shape["model"] != 0 or not 1 <= k <= _MAX_K:
+            return None  # uneven item shards or k past the kernels': scores
         dev = self.device
         B, uids, rated_items, rated_mask = _pad_rows(
             self.mesh.shape["data"], uids,

@@ -23,6 +23,13 @@ Phases, each printed as one JSON line:
              its cells'; span, device time, the plain version's, the host
              rows and their two copies it replaced (host_rows_ms), and the
              bytes bound
+  serve_recommend_1m -- recommend(k=10) for 1,024 users over 1,000,000
+             items at D=50 (cdae_1m.serve_batch's request) on both routes:
+             the fused decode + top-k (B6, recommend's route above
+             _TOPK_DEFER_CELLS) and the (B, I) slab (B3 and the sort):
+             each one's wall a request, device ms, peak memory, B6 and B3
+             launches, and its lists' widest gap below the plain float32
+             top-10 (under 1e-6); the rows whose ids agree
   serving path (counts from 0 before slice, read after dense_1m; B3, the
   fused top-k kernels, csr_rows):
     slice   -- ML-1M-scale CDAE serving at D=50 through the CLI --task test
@@ -1734,6 +1741,97 @@ def phase_kernel_csr_rows(torch, results):
             bad.append(f"csr_rows {case} (L {L})")
     if bad:
         raise AssertionError(f"csr_rows is not exact: {bad}")
+
+
+def phase_serve_recommend_1m(torch):
+    """recommend(k=10) for 1,024 users over 1,000,000 items at D=50, the
+    request of the cdae_1m.serve_batch cell (20,000 users, rows 1 + a
+    geometric draw of mean 50, at most 587; weights U(-s, s) as the
+    benchmark's), on both routes: the fused decode + top-k (B6, which
+    recommend takes above _TOPK_DEFER_CELLS) and the (B, I) slab (B3, then
+    topk_unrated's sort; the threshold raised). Per route: the wall of a
+    request with its ids read back, device ms (requests queued behind a
+    busy-wait), the peak memory a request adds, B6 and B3 launches a
+    request, and the widest gap of a served id's plain float32 score below
+    the plain top-10's at its rank (the cell's topk_gap, limit 1e-6)."""
+    import math
+
+    import numpy as np
+
+    import cdae_tpu_torch.models.cdae as C
+    import cdae_tpu_torch.ops.pallas_kernels as P
+    from cdae_tpu_torch.data.dataset import Interactions
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    U, I, D, B, k = 20_000, 1_000_000, 50, 1024, 10
+    lengths = np.minimum(1 + rng.geometric(1 / 50, U), 587)
+    items = rng.integers(0, I, int(lengths.sum()), dtype=np.int32)
+    data = Interactions.from_arrays(np.repeat(np.arange(U), lengths), items,
+                                    num_users=U, num_items=I)
+    model = C.CDAE(C.CDAEConfig(num_dim=D, dense_mode=False), device=dev)
+    state = model.reset(data, seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s = 4.0 * math.sqrt(6.0 / (I + D))
+    with torch.no_grad():
+        for name in ("W", "Wu"):
+            t = state.params[name]
+            t.copy_(torch.rand(t.shape, generator=gen, device=dev)
+                    .mul_(2 * s).sub_(s))
+    uids = rng.permutation(U)[:B].astype(np.int32)
+
+    def request():
+        return model.recommend(state, uids, data, k=k)
+
+    # the plain float32 reference: the same encode, the decode as one
+    # matmul with TF32 off, rated items at -inf
+    plain = C.CDAE(C.CDAEConfig(num_dim=D, dense_mode=False,
+                                use_pallas=False), device=dev)
+    pb_items, pb_mask = (torch.as_tensor(a, device=dev) for a in
+                         plain._user_rows(state, uids))
+    ref = plain.batch_scores(state, uids, pb_items, pb_mask)
+    ref = torch.cat([ref, ref.new_zeros((B, 1))], dim=1)
+    ref = ref.scatter_(1, pb_items.long(), float("-inf"))[:, :I]
+    best = torch.topk(ref, k, dim=1).values
+    rows = {}
+    saved = C._TOPK_DEFER_CELLS
+    try:
+        for route, cells in (("fused", saved), ("slab", 10 ** 18)):
+            C._TOPK_DEFER_CELLS = cells
+            ids = request()  # warm
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                request().cpu()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            b6, b3 = (P.fused_topk_scores_csr.launches,
+                      P.decode_scores.launches)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ids = request()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            b6, b3 = (P.fused_topk_scores_csr.launches - b6,
+                      P.decode_scores.launches - b3)
+            got = torch.gather(ref, 1, ids.long().clamp(0, I - 1))
+            got = torch.where(ids < I, got, float("-inf"))
+            rows[route] = dict(
+                ids=ids,
+                wall_ms=statistics.median(walls),
+                device_ms=device_ms(request, reps=10),
+                peak_bytes=int(peak), b6_launches=b6, b3_launches=b3,
+                topk_gap=float((best - got).clamp(min=0.0).max()))
+    finally:
+        C._TOPK_DEFER_CELLS = saved
+    fused, slab = rows["fused"], rows["slab"]
+    same = int((fused.pop("ids") == slab.pop("ids")).all(dim=1).sum())
+    ok = (fused["b6_launches"] == 1 and fused["b3_launches"] == 0
+          and slab["b6_launches"] == 0 and slab["b3_launches"] == 1
+          and max(fused["topk_gap"], slab["topk_gap"]) < 1e-6)
+    return dict(phase="serve_recommend_1m", users=B, items=I, dim=D, k=k,
+                fused=fused, slab=slab, rows_same_ids=same,
+                speedup=slab["device_ms"] / fused["device_ms"], ok=ok)
 
 
 FISM_TRAIN = ["--task", "train", "--method", "FISM", "--num_dim", "10",
@@ -3763,7 +3861,7 @@ def phase_sharded_nccl(torch, tmp, held, device="cuda"):
 
     from cdae_tpu_torch import cli
     from cdae_tpu_torch.data import io as data_io
-    from cdae_tpu_torch.models.cdae import _batch_topk_impl
+    from cdae_tpu_torch.models.cdae import _serve_hidden, _topk_from_hidden
     from cdae_tpu_torch.models.mf import WARP
     from cdae_tpu_torch.parallel.distributed import initialize, shutdown
     from cdae_tpu_torch.parallel.trainer import ShardedPairwise
@@ -3822,9 +3920,11 @@ def phase_sharded_nccl(torch, tmp, held, device="cuda"):
                 got.append(sharded(lambda: model.batch_topk(
                     st, uids, rated, mask, 10)))
                 u = torch.as_tensor(uids, dtype=torch.long, device=dev)
-                ref = _batch_topk_impl(single.state.params, u, rated, mask,
-                                       R, cfg=single.model.cfg, mode=mode,
-                                       k=10)
+                cfg = single.model.cfg
+                z = _serve_hidden(single.state.params, u, rated, mask,
+                                  cfg=cfg)
+                ref = _topk_from_hidden(z, single.state.params, u, rated, R,
+                                        cfg=cfg, mode=mode, k=10)
                 same_kernel &= bool(torch.equal(got[-1], ref))
             lists = _lists_vs_topn(
                 torch, got, batches,
@@ -4177,6 +4277,7 @@ def main() -> int:
     run("kernel", lambda: phase_kernels(torch, P, results))
     run("kernel_train", lambda: phase_train_kernels(torch, results))
     run("kernel_csr_rows", lambda: phase_kernel_csr_rows(torch, results))
+    run("serve_recommend_1m", lambda: phase_serve_recommend_1m(torch))
 
     launches = {}
     held, n_users = {}, {}

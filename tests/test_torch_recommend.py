@@ -2,8 +2,8 @@
 top-k unrated ids for IMF and CDAE (dense and sparse scoring, kernels' plain
 versions here) from the same parameters, carried across with
 params_from_numpy; no rated id in any list; the sentinel num_items in the
-slots past a catalog smaller than k; and the evaluator's pre_recommend hook
-called once per evaluate."""
+slots past a user's unrated items (here a catalog smaller than k); and the
+evaluator's pre_recommend hook called once per evaluate."""
 
 import jax
 import numpy as np
@@ -94,14 +94,18 @@ def test_catalog_smaller_than_k_pads_with_num_items(splits):
     k = I + 4
     uids = np.arange(ttrain.num_users, dtype=np.int32)
     got = tm.recommend(ts, uids, ttrain, k=k).numpy()
-    np.testing.assert_array_equal(got, jm.recommend(js, uids, jtrain, k=k))
+    want = jm.recommend(js, uids, jtrain, k=k)
     csr = ttrain.csr()
     for u, row in enumerate(got):
-        # every unrated item first, then the rated ones (scored -inf), then
-        # the sentinel in the slots past the catalog
+        # every unrated item first, then the sentinel in every slot past
+        # them: cdae_tpu lists the rated ones there (scored -inf), and its
+        # slots past the catalog hold the sentinel too
         unrated = set(range(I)) - set(csr.row(u).tolist())
+        np.testing.assert_array_equal(row[:len(unrated)],
+                                      want[u, :len(unrated)])
         assert set(row[:len(unrated)].tolist()) == unrated
-        assert (row[I:] == I).all()
+        assert (row[len(unrated):] == I).all()
+        assert (want[u, I:] == I).all()
 
 
 def test_recommend_lists_equal_topn_ranking(splits):
