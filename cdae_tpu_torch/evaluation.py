@@ -8,12 +8,12 @@ weight-0 rows) through the model's ``predict``; each batch's error sum
 
 TOPN / RANKING: validation users are processed in fixed-size batches,
 ordered by their train row length so each batch's padded rated rows stay
-short. A batch is ranked by the model's own ``batch_topk`` when it has
-one for the catalog size, else by full-catalog ``batch_scores`` -> mask
-rated -> top-10; then per-user metric rows. Column sums accumulate in
-float64 on the device, with one readback per ``evaluate`` call, and are
-divided by the number of validation users. ``TestTime`` is reported as a
-column.
+short. A batch is ranked by the model's ``topk_ids`` (its own
+``batch_topk`` when it has one for the catalog size, else full-catalog
+``batch_scores`` -> mask rated -> top-10); then per-user metric rows.
+Column sums accumulate in float64 on the device, with one readback per
+``evaluate`` call, and are divided by the number of validation users.
+``TestTime`` is reported as a column.
 """
 
 from __future__ import annotations
@@ -26,7 +26,6 @@ import torch
 
 from cdae_tpu_torch.data.dataset import Interactions, rows_from_csr
 from cdae_tpu_torch.ops import metrics as M
-from cdae_tpu_torch.ops.topk import topk_unrated
 from cdae_tpu_torch.utils.timer import Timer
 
 
@@ -197,15 +196,9 @@ class RecListEvaluation(Evaluation):
             model.pre_recommend(state)  # ref evaluation.hpp:135 hook
         col_sum = torch.zeros(len(self.columns), dtype=torch.float64,
                               device=model.device)
-        has_topk = hasattr(model, "batch_topk")
         for (uids, rated_items, rated_mask, val_items, val_ratings,
              val_mask) in batches:
-            rec = (model.batch_topk(state, uids, rated_items, rated_mask, 10)
-                   if has_topk else None)
-            if rec is None:
-                scores = model.batch_scores(state, uids, rated_items,
-                                            rated_mask)
-                rec, _ = topk_unrated(scores, rated_items, 10)
+            rec = model.topk_ids(state, uids, rated_items, rated_mask, 10)
             rows = _metric_rows(rec, val_items, val_ratings, val_mask,
                                 self.kind, self.rel_threshold)
             col_sum += rows.to(torch.float64).sum(dim=0)

@@ -7,6 +7,7 @@ The protocol the solver and evaluators rely on:
   current_loss(state, sample_size) = data_loss + penalty_loss
   batch_scores(state, uids, rated_items, rated_mask) -> (B, num_items)
   batch_topk(state, uids, rated_items, rated_mask, k) -> (B, k) ids | None
+  topk_ids(state, uids, rated_items, rated_mask, k) -> (B, k) ids
   predict(state, users, items) -> per-pair predictions
   recommend(state, uids, train_data, k) -> (B, k) top-k unrated ids
 """
@@ -22,7 +23,22 @@ import torch
 from cdae_tpu_torch.data.dataset import Interactions, PaddedUserBatch
 from cdae_tpu_torch.ops.pallas_kernels import csr_rows
 from cdae_tpu_torch.ops.topk import topk_unrated
+from cdae_tpu_torch.parallel.mesh import Collectives, Mesh
 from cdae_tpu_torch.utils.profiling import count, profiler_active, span
+
+# the auto rule of dense_mode (cdae_tpu's): the int8 dense_R holds U * I
+# cells, and a dense step's ~10 f32 (B, I) slabs take batch_size * I * 40
+# bytes (tests lower these to drive the sparse steps at fixture scale)
+_DENSE_MAX_CELLS = 1_500_000_000
+_DENSE_MAX_SLAB_BYTES = 4_000_000_000
+
+
+def dense_fits(num_users: int, num_items: int, batch_size: int) -> bool:
+    """Whether dense mode's int8 (U, I) matrix and its (B, I) slabs fit
+    (the rule ``dense_mode=None`` follows); ``batch_size`` 0 asks of the
+    matrix alone."""
+    return (num_users * num_items <= _DENSE_MAX_CELLS
+            and batch_size * num_items * 40 <= _DENSE_MAX_SLAB_BYTES)
 
 
 @dataclasses.dataclass
@@ -213,9 +229,9 @@ class RecsysModel:
     that hold tensors set ``device``."""
 
     name = "RecsysModel"
-    # a sharded wrapper's builder of its rank's dense_R block
-    # (parallel/mesh.py ``Collectives.dense_block``); None: the whole matrix
-    dense_block = None
+    # the process mesh a sharded wrapper runs its inner model on; None: one
+    # process (a 1 x 1 mesh on the model's device)
+    mesh: Optional[Mesh] = None
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         """``x`` as a tensor on the model's device; the bytes of a host
@@ -226,17 +242,20 @@ class RecsysModel:
             count("h2d_bytes", np.asarray(x).nbytes)
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
+    def _collectives(self, num_users: int, num_items: int) -> Collectives:
+        """The step collectives of a model of these dimensions on its mesh:
+        on one process every collective returns its input and every block
+        is the whole table."""
+        mesh = self.mesh if self.mesh is not None else Mesh(1, 1,
+                                                            self.device)
+        return mesh.collectives(num_users, num_items)
+
     def _dense_R(self, data) -> torch.Tensor:
-        """The int8 (U, I) interaction matrix dense_R on the device, or
-        this rank's block of it where a sharded wrapper set
-        ``dense_block``."""
-        if self.dense_block is not None:
-            return self.dense_block(data.users, data.items)
-        R = torch.zeros((data.num_users, data.num_items), dtype=torch.int8,
-                        device=self.device)
-        R[self._tensor(data.users, torch.long),
-          self._tensor(data.items, torch.long)] = 1
-        return R
+        """The int8 (U, I) interaction matrix dense_R on the device: this
+        rank's block of it on a mesh, the whole matrix on one process."""
+        coll = self._collectives(data.num_users, data.num_items)
+        return coll.dense_block(self._tensor(data.users, torch.long),
+                                self._tensor(data.items, torch.long))
 
     def _dense_user_batches(self, state: ModelState):
         """(k, B) uid and weight tensors of a user-slab route (B =
@@ -279,6 +298,26 @@ class RecsysModel:
         """Full-catalog scores for a user minibatch; (B, num_items)."""
         raise NotImplementedError
 
+    def batch_topk(self, state, uids, rated_items, rated_mask, k: int = 10):
+        """(B, k) top-k unrated ids by a model's own route, or None: the
+        caller then scores the whole (B, I) slab (``topk_ids``)."""
+        return None
+
+    def topk_ids(self, state, uids, rated_items, rated_mask, k: int = 10
+                 ) -> torch.Tensor:
+        """(B, k) top-k unrated ids of a batch: the model's ``batch_topk``
+        where it answers, else one ``batch_scores`` over the whole (B, I)
+        slab, then ``topk_unrated``. Both rank alike: the larger score
+        first, the lower id first on equal scores."""
+        ids = self.batch_topk(state, uids, rated_items, rated_mask, k)
+        if ids is None:
+            with span("serve.scores"):
+                scores = self.batch_scores(state, uids, rated_items,
+                                           rated_mask)
+            with span("serve.topk"):
+                ids, _ = topk_unrated(scores, rated_items, k)
+        return ids
+
     def predict(self, state, users, items):
         """Pointwise predictions for (user, item) pairs."""
         raise NotImplementedError
@@ -295,9 +334,7 @@ class RecsysModel:
         lengths = indptr[uids + 1] - indptr[uids]
         L = max(int(lengths.max()) if len(uids) else 1, 1)
         d_indptr, d_indices = data.csr_on(self.device, self._tensor)
-        rows = csr_rows(d_indptr, d_indices, d_uids, L, data.num_items)
-        count("rows_device", 1)
-        return rows
+        return csr_rows(d_indptr, d_indices, d_uids, L, data.num_items)
 
     def recommend(self, state, uids, train_data: Interactions,
                   k: int = 10) -> torch.Tensor:
@@ -306,15 +343,12 @@ class RecsysModel:
         whole catalog). ``train_data`` gives the rated sets to exclude and
         the input of models that score from the rated rows (CDAE). The
         rated rows are built on the model's device (``csr_rows``) from
-        ``train_data``'s CSR, copied there by the first request and kept.
-        The top-k is the model's ``batch_topk`` where it has one and it
-        answers (CDAE's fused decode + top-k over a large catalog, counted
-        in ``topk_fused``); else one ``batch_scores`` over the whole (B, I)
-        slab, then ``topk_unrated``. Both rank alike: the larger score
-        first, the lower id first on equal scores. Returns (B, k) int32 ids
-        on the model's device; id == num_items marks a slot past a user's
-        unrated items (a catalog smaller than k, or a user who rated all
-        but fewer than k of it)."""
+        ``train_data``'s CSR, copied there by the first request and kept;
+        the top-k is ``topk_ids`` (CDAE's fused decode + top-k over a large
+        catalog, else the (B, I) slab). Returns (B, k) int32 ids on the
+        model's device; id == num_items marks a slot past a user's unrated
+        items (a catalog smaller than k, or a user who rated all but fewer
+        than k of it)."""
         with span("serve.request"):
             uids = np.array(uids, dtype=np.int64).reshape(-1)  # contiguous
             with span("serve.rows"):
@@ -324,15 +358,7 @@ class RecsysModel:
                         f"uids outside [0, {train_data.num_users})")
                 d_uids = self._tensor(uids)  # one copy for rows and top-k
                 rated, mask = self._rated_rows(uids, d_uids, train_data)
-            ids = (self.batch_topk(state, d_uids, rated, mask, k)
-                   if hasattr(self, "batch_topk") else None)
-            if ids is None:
-                with span("serve.scores"):
-                    scores = self.batch_scores(state, d_uids, rated, mask)
-                with span("serve.topk"):
-                    ids, _ = topk_unrated(scores, rated, k)
-            else:
-                count("topk_fused", 1)
+            ids = self.topk_ids(state, d_uids, rated, mask, k)
             # no row is longer than rated.shape[1]: only past this can a
             # user have fewer than k unrated items
             if state.num_items - rated.shape[1] < k:

@@ -47,15 +47,17 @@ across (utils/checkpoint.py).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from cdae_tpu_torch.data.dataset import Interactions
+from cdae_tpu_torch.data.dataset import Interactions, rows_from_csr
 from cdae_tpu_torch.models.base import (
     ModelState,
     RecsysModel,
+    dense_fits,
     iter_user_batches,
     iter_user_batches_csr,
     resolve_device,
@@ -78,6 +80,7 @@ from cdae_tpu_torch.ops.pallas_kernels import (
 from cdae_tpu_torch.ops.penalties import Penalty
 from cdae_tpu_torch.ops.sampling import hw_randint, is_rated, sample_unrated
 from cdae_tpu_torch.ops.scatter import row_plan, scatter_add_rows
+from cdae_tpu_torch.parallel.mesh import Collectives
 from cdae_tpu_torch.solver.optimizer import (
     ADAGRAD_INIT,
     dense_adagrad_step,
@@ -100,9 +103,8 @@ _MASK32 = 0xFFFFFFFF
 class CDAEConfig:
     """Every field of cdae_tpu's CDAEConfig, so CLI flags and checkpoints
     carry over. ``dense_mode``: None picks the dense step while the int8
-    (U, I) matrix and the step's (B, I) slabs fit (``_DENSE_MAX_CELLS``,
-    ``_DENSE_MAX_SLAB_BYTES``), else the sparse step. The sparse step's
-    knobs:
+    (U, I) matrix and the step's (B, I) slabs fit (models/base.py
+    ``dense_fits``), else the sparse step. The sparse step's knobs:
 
     - ``neg_pool`` (K): one pool of K uniform item ids a batch, each user
       keeping a pool id with q_u = num_neg*|O_u|*I / (K*(I - |O_u|)), so an
@@ -157,11 +159,6 @@ class CDAEConfig:
 # this many score cells; above it the blockwise paths take over (tests
 # lower this to drive the huge-catalog modes at fixture scale)
 _TOPK_DEFER_CELLS = 200_000_000
-# the auto rule of dense_mode (cdae_tpu's): the int8 dense_R holds U * I
-# cells, and a dense step's ~10 f32 (B, I) slabs take batch_size * I * 40
-# bytes (tests lower these to drive the sparse step at fixture scale)
-_DENSE_MAX_CELLS = 1_500_000_000
-_DENSE_MAX_SLAB_BYTES = 4_000_000_000
 # hw_randint salts of the sparse step's integer draws (its uniforms are
 # hw_uniform draws 0, the corruption, and 1, the pool selection)
 _NEG_SALT = 0x5EED0001
@@ -169,10 +166,18 @@ _POOL_SALT = 0x5EED0002
 
 
 class CDAEState(ModelState):
-    """CDAE parameters + data views; ``aux`` holds the CSR view and, in
-    dense mode, the int8 (U, I) interaction matrix ``dense_R`` (without it
-    training takes the sparse step, whose cached batches are
-    ``device_batches``)."""
+    """CDAE parameters + data views; ``aux`` holds the CSR view, the
+    ``Collectives`` of the state's mesh (``coll``) and, in dense mode, the
+    int8 (U, I) interaction matrix ``dense_R`` -- a sharded rank's block of
+    it as ``dense_R_block`` (without either training takes the sparse step,
+    whose cached batches are ``device_batches``)."""
+
+
+def _resident_R(state: CDAEState) -> Optional[torch.Tensor]:
+    """The state's dense_R (or this rank's block of it), None in sparse
+    mode."""
+    aux = state.aux
+    return aux["dense_R"] if "dense_R" in aux else aux.get("dense_R_block")
 
 
 def _activation(h: torch.Tensor, linear: bool, tanh: bool) -> torch.Tensor:
@@ -247,13 +252,12 @@ class CDAE(RecsysModel):
             num_items=I,
         )
         state.aux["csr"] = csr
+        # the collectives every step, loss and encode of this state calls:
+        # a sharded rank's, or a 1 x 1 mesh's, which return their input
+        state.aux["coll"] = self._collectives(U, I)
         dense = cfg.dense_mode
         if dense is None:
-            # int8 dense_R (U*I bytes) and ~10 f32 (B, I) slabs per batch
-            dense = (
-                U * I <= _DENSE_MAX_CELLS
-                and cfg.batch_size * I * 40 <= _DENSE_MAX_SLAB_BYTES
-            )
+            dense = dense_fits(U, I, cfg.batch_size)
         if dense:
             with phase("cdae.dense_R"):
                 state.aux["dense_R"] = self._dense_R(data)
@@ -295,64 +299,49 @@ class CDAE(RecsysModel):
             state.aux["device_batches"] = list(batches)
         return state.aux["device_batches"]
 
-    def _sparse_epoch(self, state: CDAEState, seed: int, draws,
-                      by_shape: bool) -> None:
-        """One epoch of sparse steps, ``num_corruptions`` a batch, with
-        step seeds from (``seed``, ``state.step``, batch index, corruption),
-        over the batches in host order or, ``by_shape``, grouped by
-        ascending (B, L) shape with the host order kept within a group;
-        ``draws`` (optional) yields each step's injected draws in turn."""
+    def _epoch(self, state: CDAEState, seed: int, draws,
+               by_shape: bool) -> None:
+        """One epoch, ``num_corruptions`` steps a batch, with step seeds
+        from (``seed``, ``state.step``, batch index, corruption): the dense
+        step over the dense batches, else the sparse step over the batches
+        in host order or, ``by_shape``, grouped by ascending (B, L) shape
+        with the host order kept within a group; ``draws`` (optional)
+        yields each step's injected draws in turn."""
+        R = _resident_R(state)
+        kw = dict(cfg=self.cfg, loss=self.loss, coll=state.aux["coll"])
         with span("cdae.epoch"):
-            steps = enumerate(self._device_batches(state))
-            if by_shape:
-                steps = sorted(steps, key=lambda jb: tuple(jb[1][1].shape))
+            if R is None:
+                step = functools.partial(_train_step, state.params, **kw)
+                steps = enumerate(self._device_batches(state))
+                if by_shape:
+                    steps = sorted(steps, key=lambda jb: tuple(jb[1][1].shape))
+            else:
+                step = functools.partial(_dense_train_step, state.params, R,
+                                         **kw)
+                steps = enumerate(zip(*self._dense_batches(state)))
             for j, batch in steps:
                 for c in range(self.cfg.num_corruptions):
                     with span("cdae.step"):
-                        _train_step(
-                            state.params, *batch,
-                            step_seed(seed, state.step, j, c),
-                            cfg=self.cfg, loss=self.loss,
-                            **(next(draws) if draws is not None else {}))
+                        step(*batch, step_seed(seed, state.step, j, c),
+                             **(next(draws) if draws is not None else {}))
         state.step += 1
 
     def train_one_iteration(self, state: CDAEState, seed: int = 0,
                             draws=None) -> CDAEState:
-        """One epoch over every user. In dense mode ``train_epochs(state,
-        1, seed)``; else the sparse step over the batches in their host
-        order (cdae_tpu's order). ``draws`` (sparse only, optional): an
-        iterator of each step's draws as ``_train_step`` keywords."""
-        if "dense_R" in state.aux:
-            return self.train_epochs(state, 1, seed)
-        self._sparse_epoch(state, seed, draws, by_shape=False)
+        """One epoch over every user, the batches in their host order
+        (cdae_tpu's). ``draws`` (optional): an iterator of each step's
+        draws as the step's keywords."""
+        self._epoch(state, seed, draws, by_shape=False)
         return state
 
     def train_epochs(self, state: CDAEState, num_epochs: int, seed: int = 0,
                      draws=None) -> CDAEState:
-        """``num_epochs`` epochs: every batch of users, ``num_corruptions``
-        times each, with step seeds from (``seed``, ``state.step``, batch,
-        corruption). Updates ``state.params`` in place. Dense mode takes
-        the dense step; otherwise the sparse step visits the batches as
-        cdae_tpu's fused epochs do: grouped by shape in ascending (B, L),
-        the host order within a group. ``draws``: as in
-        ``train_one_iteration``."""
-        if "dense_R" not in state.aux:
-            for _ in range(num_epochs):
-                self._sparse_epoch(state, seed, draws, by_shape=True)
-            return state
-        R = state.aux["dense_R"]
-        uid_mat, w_mat = self._dense_batches(state)
+        """``num_epochs`` epochs, updating ``state.params`` in place. The
+        sparse step visits the batches as cdae_tpu's fused epochs do:
+        grouped by shape in ascending (B, L), the host order within a
+        group. ``draws``: as in ``train_one_iteration``."""
         for _ in range(num_epochs):
-            with span("cdae.epoch"):
-                for j in range(uid_mat.shape[0]):
-                    for c in range(self.cfg.num_corruptions):
-                        with span("cdae.step"):
-                            _dense_train_step(
-                                state.params, R, uid_mat[j], w_mat[j],
-                                step_seed(seed, state.step, j, c),
-                                cfg=self.cfg, loss=self.loss,
-                            )
-            state.step += 1
+            self._epoch(state, seed, draws, by_shape=True)
         return state
 
     # -------------------------------------------------------------- loss ----
@@ -363,16 +352,15 @@ class CDAE(RecsysModel):
         cdae_tpu. ``uniforms[j][c]`` (optional) are the corruption uniforms
         of batch j, corruption c -- (B, I) in dense mode, (B, L) over the
         sparse batches; by default they are drawn from seeds of
-        (``state.step``, batch, corruption)."""
-        sparse = "dense_R" not in state.aux
-        if sparse:
-            batches = self._device_batches(state)
-        else:
-            R = state.aux["dense_R"]
-            batches = zip(*self._dense_batches(state))
+        (``state.step``, batch, corruption). On a mesh each rank sums its
+        rows and blocks, and the total is the mesh's."""
+        R = _resident_R(state)
+        sparse = R is None
+        batches = (self._device_batches(state) if sparse
+                   else zip(*self._dense_batches(state)))
         total = 0.0
         for j, batch in enumerate(batches):
-            kw = dict(cfg=self.cfg, loss=self.loss,
+            kw = dict(cfg=self.cfg, loss=self.loss, coll=state.aux["coll"],
                       uniforms=None if uniforms is None else uniforms[j])
             seed = step_seed(_LOSS_STREAM, state.step, j, 0)
             if sparse:
@@ -411,16 +399,16 @@ class CDAE(RecsysModel):
     # ----------------------------------------------------------- scoring ----
     def batch_scores(self, state: CDAEState, uids, rated_items, rated_mask):
         """(B, I) full-catalog decode for the given users from their
-        uncorrupted input; with ``dense_R`` resident the encode is a
-        (B, I) x (I, D) matmul instead of a padded gather-sum."""
-        uids = self._tensor(uids, torch.long)
-        if "dense_R" in state.aux:
-            return _dense_scores(state.params, state.aux["dense_R"], uids,
-                                 cfg=self.cfg)
-        return _batch_scores(
-            state.params, uids, self._tensor(rated_items),
-            self._tensor(rated_mask), cfg=self.cfg,
-        )
+        uncorrupted input; with dense_R resident the encode is a (B, I) x
+        (I, D) matmul instead of a padded gather-sum. On a mesh (B dividing
+        over 'data') each rank decodes its (B / n_data, I / n_model) block
+        and every rank gets the whole (B, I)."""
+        coll = state.aux["coll"]
+        z = _serve_hidden(state.params, self._tensor(uids, torch.long),
+                          self._tensor(rated_items), self._tensor(rated_mask),
+                          cfg=self.cfg, coll=coll, dense_R=_resident_R(state))
+        return coll.data_gather(coll.model_gather(
+            _decode(state.params, z, self.cfg), dim=1))
 
     def batch_topk(self, state: CDAEState, uids, rated_items, rated_mask,
                    k: int = 10):
@@ -441,7 +429,8 @@ class CDAE(RecsysModel):
         rated_items = self._tensor(rated_items)
         with span("serve.scores"):
             z = _serve_hidden(state.params, uids, rated_items,
-                              self._tensor(rated_mask), cfg=self.cfg)
+                              self._tensor(rated_mask), cfg=self.cfg,
+                              coll=state.aux["coll"])
         with span("serve.topk"):
             return _topk_from_hidden(
                 z, state.params, uids, rated_items,
@@ -469,14 +458,8 @@ class CDAE(RecsysModel):
         if state.padded is not None:
             pb = state.padded
             return pb.items[users_np], pb.mask[users_np]
-        csr = state.aux["csr"]
-        lengths = np.diff(csr.indptr)[users_np].astype(np.int32)
-        L = max(int(lengths.max()) if len(lengths) else 1, 1)
-        items = np.full((len(users_np), L), state.num_items, np.int32)
-        for row, u in enumerate(users_np):
-            s, e = csr.indptr[u], csr.indptr[u + 1]
-            items[row, : e - s] = csr.indices[s:e]
-        mask = np.arange(L)[None, :] < lengths[:, None]
+        items, _, mask, _ = rows_from_csr(state.aux["csr"], users_np,
+                                          state.num_items)
         return items, mask
 
     def predict(self, state: CDAEState, users, items):
@@ -555,30 +538,31 @@ def _decode(params, z, cfg: CDAEConfig) -> torch.Tensor:
     return _mm(z, table.t(), cfg) + params["b_prime"][None, :]
 
 
-def _dense_scores(params, dense_R, uids, *, cfg: CDAEConfig):
-    """(B, I) decoder scores with the dense-matmul encode (uncorrupted
-    input, scale 1)."""
-    dt = params["W"].dtype
-    rows = dense_R[uids].to(dt)
-    if cfg.corruption_ratio == 1.0:
-        rows = torch.zeros_like(rows)
-    h = _mm(rows, params["W"], cfg).to(dt)
-    user_rows = {n: params[n][uids] for n in ("Uu", "Wu") if n in params}
-    return _decode(params, _finish_hidden(h, params, user_rows, cfg), cfg)
-
-
 def _serve_hidden(params, uids, rated_items, rated_mask, *,
-                  cfg: CDAEConfig) -> torch.Tensor:
-    """(B, D) hidden codes of the uncorrupted padded rated rows (scale 1)."""
-    in_mask = (torch.zeros_like(rated_mask) if cfg.corruption_ratio == 1.0
-               else rated_mask)
-    return _hidden(params, uids, rated_items, in_mask, 1.0, cfg)
-
-
-def _batch_scores(params, uids, rated_items, rated_mask, *, cfg: CDAEConfig):
-    """(B, I) decoder scores from the uncorrupted padded rated rows."""
-    return _decode(params, _serve_hidden(params, uids, rated_items,
-                                         rated_mask, cfg=cfg), cfg)
+                  cfg: CDAEConfig, coll: Collectives,
+                  dense_R: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B / n_data, D) hidden codes of this rank's rows ``coll.rows(B)`` of
+    a batch of users (``uids`` whole), from their uncorrupted input at
+    scale 1 (an empty input when corruption_ratio == 1): a gather-sum of
+    the padded rated rows (item rows gathered from their owners) or, with
+    ``dense_R`` (its rank's block), a dense encode of its rows summed over
+    'model'."""
+    sl = coll.rows(uids.shape[0])
+    user_rows = {n: coll.gather_users(params[n], uids)[sl]
+                 for n in ("Uu", "Wu") if n in params}
+    off = cfg.corruption_ratio == 1.0
+    if dense_R is not None:
+        dt = params["W"].dtype
+        rows = coll.batch_rows(dense_R, uids).to(dt)
+        if off:
+            rows = torch.zeros_like(rows)
+        h = coll.model_sum(_mm(rows, params["W"], cfg).to(dt))
+        return _finish_hidden(h, params, user_rows, cfg)
+    items = rated_items[sl].long()
+    mask = torch.zeros_like(rated_mask[sl]) if off else rated_mask[sl]
+    rows = coll.gather_items(params["W"], items.clamp(0, coll.num_items - 1))
+    return _hidden(params, uids[sl], items, mask, 1.0, cfg, rows=rows,
+                   user_rows=user_rows)
 
 
 def _topk_from_hidden(z, params, uids, rated_items, dense_R, *,
@@ -605,24 +589,22 @@ def _topk_from_hidden(z, params, uids, rated_items, dense_R, *,
 # ============================================================ training ====
 
 def _draw_uniforms(seed: int, shape, draws, cfg: CDAEConfig, device,
-                   block=None):
+                   block):
     """(B, I) f32 uniforms of one step seed, one per entry of ``draws``:
     ``hw_uniform(seed, shape, draw)`` with ``fast_rng`` (its kernel when
     ``use_pallas`` is on), else successive ``torch.rand`` draws of a
     generator seeded with ``seed``. ``block`` = (row offset, column
     offset, whole shape): ``shape`` is that block of the whole draw (a
-    sharded step's): B1 draws the block alone, a generator the whole
-    shape, then the block is cut out."""
-    r0, c0, full = block if block is not None else (0, 0, shape)
+    rank's): B1 draws the block alone, a generator the whole shape, then
+    the block is cut out."""
+    r0, c0, full = block
     if cfg.fast_rng:
         fn = hw_uniform if cfg.use_pallas else hw_uniform_plain
         return [fn(seed, shape, d, device=device, row_offset=r0,
                    col_offset=c0) for d in draws]
     gen = torch.Generator(device=device).manual_seed(seed & _MASK32)
-    whole = [torch.rand(full, generator=gen, device=device) for _ in draws]
-    if block is None:
-        return whole
-    return [u[r0:r0 + shape[0], c0:c0 + shape[1]] for u in whole]
+    return [torch.rand(full, generator=gen, device=device)[
+        r0:r0 + shape[0], c0:c0 + shape[1]] for _ in draws]
 
 
 def _z_one_minus_z(z: torch.Tensor, cfg: CDAEConfig) -> torch.Tensor:
@@ -724,9 +706,9 @@ def _dense_train_step(
     *,
     cfg: CDAEConfig,
     loss: Loss,
+    coll: Collectives,
     u_corrupt: Optional[torch.Tensor] = None,  # (B, I) f32 uniforms
     u_neg: Optional[torch.Tensor] = None,  # (B, I) f32 uniforms
-    coll=None,  # parallel/mesh.py Collectives: a sharded step
 ) -> Dict[str, torch.Tensor]:
     """One full-catalog dense minibatch step: corrupt, encode ((B, I) x
     (I, D)), activate, draw Bernoulli negatives (expected count
@@ -740,48 +722,37 @@ def _dense_train_step(
     ``compute_dtype`` bf16 the (B, I) slabs live in bf16, as in cdae_tpu:
     the 0/1 masks are exact, and the loss-gradient slab rounds.
 
-    ``coll`` (parallel/mesh.py ``Collectives``; None: the single-device
-    step) makes this one rank's step of a sharded run: ``uids`` / ``weight``
-    are still the whole batch, of which the step takes its rows
-    (``coll.rows``); ``dense_R`` is the rank's (user, item) block
-    (``coll.batch_rows`` reads it), the item tables its item block, Wu / Uu
-    its user block. The encode's partial pre-activation,
-    the row lengths and the back-propagated hidden gradient are summed
-    over 'model', every dense gradient over 'data' before the one B2
-    launch; the user rows are gathered from and updated on their owners.
-    Draws are the block of the single-device step's (B1 at the block's
-    offsets). Injected uniforms are the block's."""
+    ``coll`` (parallel/mesh.py ``Collectives``) places the step on its
+    rank of the mesh: ``uids`` / ``weight`` are the whole batch, of which
+    the step takes its rows (``coll.rows``); ``dense_R`` is the rank's
+    (user, item) block (``coll.batch_rows`` reads it), the item tables its
+    item block, Wu / Uu its user block. The encode's partial
+    pre-activation, the row lengths and the back-propagated hidden
+    gradient are summed over 'model', every dense gradient over 'data'
+    before the one B2 launch; the user rows are gathered from and updated
+    on their owners. Draws are the block of the whole step's (B1 at the
+    block's offsets). Injected uniforms are the block's. On one process
+    every block is whole and every collective returns its input."""
     if _use_fused_step(cfg):
         return _dense_train_step_fused(params, dense_R, uids, weight, seed,
                                        cfg=cfg, loss=loss)
     W = params["W"]
-    I, D = W.shape
     dt = W.dtype
     sdt = _cdt(cfg)
     f32 = torch.float32
     lam, lr, beta = cfg.lambda_, cfg.learn_rate, cfg.beta
     use_kernel = bool(cfg.use_pallas)
-    uids_all, weight_all, block = uids, weight, None
-    if coll is not None:
-        sl = coll.rows(uids.shape[0])
-        uids, weight = uids[sl], weight[sl]
-        block = (sl.start, coll.col_offset, (uids_all.shape[0],
-                                             coll.num_items))
-        I = coll.num_items  # the negatives' rate is the whole catalog's
-
-    def user_rows(name):
-        if coll is None:
-            return params[name][uids]
-        return coll.gather_users(params[name], uids_all)[sl]
+    uids_all, weight_all = uids, weight
+    sl = coll.rows(uids.shape[0])
+    uids, weight = uids[sl], weight[sl]
+    block = (sl.start, coll.col_offset, (uids_all.shape[0], coll.num_items))
+    I = coll.num_items  # the negatives' rate is the whole catalog's
 
     w_user = weight.to(sdt)
-    R_rows = (dense_R[uids] if coll is None
-              else coll.batch_rows(dense_R, uids_all))
-    rows = R_rows.to(sdt) * w_user[:, None]  # (B, I) 0/1
-    # counts exceed bf16's exact-integer range -- accumulate f32
-    lengths = rows.sum(dim=1, dtype=f32).to(dt)
-    if coll is not None:
-        lengths = coll.model_sum(lengths)  # whole counts: exact
+    rows = coll.batch_rows(dense_R, uids_all).to(sdt) * w_user[:, None]
+    # counts exceed bf16's exact-integer range -- accumulate f32; whole
+    # counts summed over 'model': exact
+    lengths = coll.model_sum(rows.sum(dim=1, dtype=f32).to(dt))
     shape = tuple(rows.shape)
     q = cfg.corruption_ratio
     need = [0] if q > 0.0 and u_corrupt is None else []  # draw 0: corruption
@@ -797,13 +768,11 @@ def _dense_train_step(
         kept = rows * (u_corrupt > q).to(sdt) if q > 0.0 else rows
         scale = input_scale(q, cfg.scaled)
 
-        h = _mm(kept, W, cfg).to(dt)
-        if coll is not None:
-            h = coll.model_sum(h)
-        uu_rows = user_rows("Uu") if cfg.linear_function else None
-        wu_rows = user_rows("Wu") if cfg.user_factor else None
-        z = _finish_hidden(h * scale, params, {"Uu": uu_rows, "Wu": wu_rows},
-                           cfg)
+        h = coll.model_sum(_mm(kept, W, cfg).to(dt))
+        urows = {n: coll.gather_users(params[n], uids_all)[sl]
+                 for n in ("Uu", "Wu") if n in params}
+        uu_rows, wu_rows = urows.get("Uu"), urows.get("Wu")
+        z = _finish_hidden(h * scale, params, urows, cfg)
         dz = _z_one_minus_z(z, cfg)
 
         p_neg = _neg_probability(lengths, I, cfg).to(sdt)
@@ -820,10 +789,7 @@ def _dense_train_step(
         touches = w_mat.sum(dim=0, dtype=f32).to(dt)  # (I,)
         d_bp = (g.sum(dim=0, dtype=f32).to(dt)
                 + lam * touches * params["b_prime"])
-        hg = _mm(g, table, cfg).to(dt)
-        if coll is not None:
-            hg = coll.model_sum(hg)
-        hg = hg * dz
+        hg = coll.model_sum(_mm(g, table, cfg).to(dt)) * dz
 
         base = (uu_rows * hg if cfg.linear_function else hg) * scale
         if cfg.asymmetric:
@@ -837,15 +803,13 @@ def _dense_train_step(
             d_W = (_mm(g.t(), z, cfg).to(dt) + _mm(kept.t(), base, cfg).to(dt)
                    + lam * touches[:, None] * W)
         # Uu's gradient needs the pre-update W: take it before the sweep
-        sum_kept_W = _mm(kept, W, cfg).to(dt) if cfg.linear_function else None
-        if coll is not None and sum_kept_W is not None:
-            sum_kept_W = coll.model_sum(sum_kept_W)
+        sum_kept_W = (coll.model_sum(_mm(kept, W, cfg).to(dt))
+                      if cfg.linear_function else None)
         dense = {"W": d_W, "b_prime": d_bp}
         if cfg.asymmetric:
             dense["V"] = d_V
         dense["b"] = w_user.to(f32) @ hg + w_user.sum() * lam * params["b"]
-        if coll is not None:
-            dense = coll.data_sum_all(dense)
+        dense = coll.data_sum_all(dense)
     with span("cdae.step.update"):
         # every dense grad is taken: one sweep (one kernel launch) for them
         # all
@@ -854,7 +818,7 @@ def _dense_train_step(
              for name, g in dense.items()],
             lr, beta, cfg.using_adagrad, use_kernel)
         _user_row_steps(
-            params, uids, w_user, cfg, coll, uids_all, weight_all, {
+            params, cfg, coll, uids_all, weight_all, {
                 "Wu": (lambda: (hg + lam * wu_rows) * w_user[:, None])
                 if cfg.user_factor else None,
                 "Uu": (lambda: (lam * uu_rows + hg * sum_kept_W)
@@ -864,57 +828,37 @@ def _dense_train_step(
     return params
 
 
-def _user_row_steps(params, uids, w_user, cfg: CDAEConfig, coll, uids_all,
+def _user_row_steps(params, cfg: CDAEConfig, coll: Collectives, uids_all,
                     weight_all, grads) -> None:
     """Per-user-row AdaGrad of Wu, then Uu (``grads``: name -> a function
-    giving the batch rows' gradient, or None), by the duplicate-safe
-    delta-add. With ``coll`` the rows' gradients are gathered over 'data'
-    and each rank updates the rows of its user block."""
-    lr, beta = cfg.learn_rate, cfg.beta
+    giving this rank's batch rows' gradient, or None), by the
+    duplicate-safe delta-add: the rows' gradients gathered over 'data',
+    each rank updating the rows of its user block."""
     for name in ("Wu", "Uu"):
         fn = grads.get(name)
-        if fn is None:
-            continue
-        if coll is None:
-            row_adagrad_delta(params[name], params[name + "_ag"], uids,
-                              fn(), w_user[:, None] > 0, lr, beta,
-                              cfg.using_adagrad)
-            continue
-        rows, owned = coll.own_users(uids_all)
-        row_adagrad_delta(params[name], params[name + "_ag"], rows,
-                          coll.data_gather(fn()),
-                          ((weight_all > 0) & owned)[:, None], lr, beta,
-                          cfg.using_adagrad)
+        if fn is not None:
+            rows, live = coll.own_rows(uids_all, weight_all > 0)
+            row_adagrad_delta(params[name], params[name + "_ag"], rows,
+                              coll.data_gather(fn()), live[:, None],
+                              cfg.learn_rate, cfg.beta, cfg.using_adagrad)
 
 
 def _dense_data_loss(params, dense_R, uids, weight, seed: int, *,
-                     cfg: CDAEConfig, loss: Loss, uniforms=None, coll=None
-                     ) -> torch.Tensor:
+                     cfg: CDAEConfig, loss: Loss, coll: Collectives,
+                     uniforms=None) -> torch.Tensor:
     """Dense-mode reconstruction loss over the positives, averaged over
     ``num_corruptions`` corruptions. ``uniforms[c]`` (optional) is the
     (B, I) corruption draw of corruption c; otherwise draw c of ``seed``.
-    ``coll``: one rank's part of a sharded run's loss, as in
-    ``_dense_train_step`` (the encode summed over 'model', the loss over
-    both axes; injected uniforms are the rank's block)."""
+    ``coll``: this rank's part of the loss, as in ``_dense_train_step``
+    (the encode summed over 'model', the loss over both axes; injected
+    uniforms are the rank's block)."""
     W = params["W"]
     dt = W.dtype
-    uids_all, block = uids, None
-    if coll is not None:
-        sl = coll.rows(uids.shape[0])
-        uids, weight = uids[sl], weight[sl]
-    w_user = weight.to(dt)
-    R_rows = (dense_R[uids] if coll is None
-              else coll.batch_rows(dense_R, uids_all))
-    rows = R_rows.to(dt) * w_user[:, None]
-    if coll is not None:
-        block = (sl.start, coll.col_offset, (uids_all.shape[0],
-                                             coll.num_items))
-
-    def user_rows(name):
-        if coll is None:
-            return params[name][uids]
-        return coll.gather_users(params[name], uids_all)[sl]
-
+    uids_all = uids
+    sl = coll.rows(uids.shape[0])
+    w_user = weight[sl].to(dt)
+    rows = coll.batch_rows(dense_R, uids_all).to(dt) * w_user[:, None]
+    block = (sl.start, coll.col_offset, (uids_all.shape[0], coll.num_items))
     q = cfg.corruption_ratio
     ncorr = cfg.num_corruptions
     if uniforms is None and q > 0.0:
@@ -922,19 +866,16 @@ def _dense_data_loss(params, dense_R, uids, weight, seed: int, *,
                                   W.device, block)
     scale = input_scale(q, cfg.scaled)
     table = params["V"] if cfg.asymmetric else W
-    urows = {n: user_rows(n) for n in ("Uu", "Wu") if n in params}
+    urows = {n: coll.gather_users(params[n], uids_all)[sl]
+             for n in ("Uu", "Wu") if n in params}
     total = torch.zeros((), dtype=torch.float32, device=W.device)
     for c in range(ncorr):
         kept = rows * (uniforms[c] > q).to(dt) if q > 0.0 else rows
-        h = _mm(kept, W, cfg).to(dt)
-        if coll is not None:
-            h = coll.model_sum(h)
+        h = coll.model_sum(_mm(kept, W, cfg).to(dt))
         z = _finish_hidden(h * scale, params, urows, cfg)
         pred = _mm(z, table.t(), cfg).to(dt) + params["b_prime"][None, :]
         total = total + torch.sum(loss.evaluate(pred, 1.0) * rows)
-    if coll is not None:
-        total = coll.data_sum(coll.model_sum(total))
-    return total / ncorr
+    return coll.data_sum(coll.model_sum(total)) / ncorr
 
 
 # ======================================================== sparse training ===
@@ -947,69 +888,58 @@ def _scatter_mode(cfg: CDAEConfig) -> str:
     return "pallas" if cfg.use_pallas else "scatter"
 
 
-def _decode_at(params, z, item_ids, cfg: CDAEConfig, coll=None):
+def _decode_at(params, z, item_ids, cfg: CDAEConfig, coll: Collectives):
     """(predictions, decoder rows) of the given item ids: y_o = (V|W)_o . z
-    + b'_o over (B, N) ids, clipped into the catalog (with ``coll``, the
-    rows gathered from the rank's item blocks)."""
+    + b'_o over (B, N) ids, clipped into the catalog, the rows gathered
+    from their owners' item blocks."""
     table = params["V"] if cfg.asymmetric else params["W"]
-    if coll is None:
-        ids = item_ids.clamp(0, table.shape[0] - 1)
-        rows = table[ids]  # (B, N, D)
-        bp = params["b_prime"][ids]
-    else:
-        ids = item_ids.clamp(0, coll.num_items - 1)
-        rows = coll.gather_items(table, ids)
-        bp = coll.gather_items(params["b_prime"], ids)
+    ids = item_ids.clamp(0, coll.num_items - 1)
+    rows = coll.gather_items(table, ids)  # (B, N, D)
+    bp = coll.gather_items(params["b_prime"], ids)
     preds = torch.einsum("bnd,bd->bn", _operand(rows, cfg),
                          _operand(z, cfg)).to(table.dtype)
     return preds + bp, rows
 
 
 def _sparse_draws(seed: int, items, lengths, I: int, cfg: CDAEConfig,
-                  rows: Optional[slice] = None, B_all: int = 0):
+                  rows: slice, B_all: int):
     """The sparse step's draws from its seed, as ``_train_step`` keywords:
     the (B, L) corruption uniforms ``u_keep``, then the exact negatives
     ``neg`` (B, num_neg * L) or the pool ids ``pool`` (K,) with their
     (B, K) selection uniforms ``u_sel``. With ``fast_rng`` the uniforms are
     hw_uniform draws 0 and 1 of the seed and the ids hw_randint draws with
     their own salts (kernel B1 with ``use_pallas``); otherwise a generator
-    seeded with the seed draws them in that order. ``rows`` (a sharded
-    step's block of a batch of ``B_all`` rows; ``items`` and ``lengths``
-    are the block's): the block of the whole batch's draws -- B1 draws at
-    the block's row offset, a generator draws the whole batch's shapes."""
+    seeded with the seed draws them in that order. ``rows``: this rank's
+    block of a batch of ``B_all`` rows (``items`` and ``lengths`` are the
+    block's), whose draws are the block of the whole batch's -- B1 draws
+    at the block's row offset, a generator draws the whole batch's shapes
+    and the block is cut out."""
     B, L = items.shape
     dev = items.device
     q = cfg.corruption_ratio
     out = {}
     gen = None
-    r0 = 0 if rows is None else rows.start
-    Bg = B if rows is None else B_all  # the rows a generator draws
-
-    def cut(x):
-        return x if rows is None else x[rows]
-
+    r0 = rows.start
     if not cfg.fast_rng:
         gen = torch.Generator(device=dev).manual_seed(int(seed) & _MASK32)
     if q > 0.0:
         out["u_keep"] = (
-            _draw_uniforms(seed, (B, L), [0], cfg, dev,
-                           None if rows is None else (r0, 0, (B_all, L)))[0]
+            _draw_uniforms(seed, (B, L), [0], cfg, dev, (r0, 0, (B_all, L)))[0]
             if cfg.fast_rng else
-            cut(torch.rand((Bg, L), generator=gen, device=dev)))
+            torch.rand((B_all, L), generator=gen, device=dev)[rows])
     if cfg.neg_pool:
         K = int(cfg.neg_pool)
         if cfg.fast_rng:
             out["pool"] = hw_randint(seed, (1, K), I, salt=_POOL_SALT,
                                      device=dev,
                                      use_kernel=bool(cfg.use_pallas))[0]
-            out["u_sel"] = _draw_uniforms(
-                seed, (B, K), [1], cfg, dev,
-                None if rows is None else (r0, 0, (B_all, K)))[0]
+            out["u_sel"] = _draw_uniforms(seed, (B, K), [1], cfg, dev,
+                                          (r0, 0, (B_all, K)))[0]
         else:
             out["pool"] = torch.randint(0, I, (K,), generator=gen,
                                         device=dev)
-            out["u_sel"] = cut(torch.rand((Bg, K), generator=gen,
-                                          device=dev))
+            out["u_sel"] = torch.rand((B_all, K), generator=gen,
+                                      device=dev)[rows]
     elif cfg.num_neg > 0:
         shape = (B, cfg.num_neg * L)
         free = torch.clamp(I - lengths, min=1)[:, None]
@@ -1017,8 +947,8 @@ def _sparse_draws(seed: int, items, lengths, I: int, cfg: CDAEConfig,
             u = hw_randint(seed, shape, free, salt=_NEG_SALT, device=dev,
                            use_kernel=bool(cfg.use_pallas), row_offset=r0)
         else:
-            r = cut(torch.rand((Bg, shape[1]), generator=gen,
-                               dtype=torch.float64, device=dev))
+            r = torch.rand((B_all, shape[1]), generator=gen,
+                           dtype=torch.float64, device=dev)[rows]
             u = torch.minimum((r * free).to(torch.int64), free - 1)
         out["neg"] = sample_unrated(seed, items, lengths, I, shape[1], u=u)
     return out
@@ -1035,12 +965,12 @@ def _train_step(
     *,
     cfg: CDAEConfig,
     loss: Loss,
+    coll: Collectives,
     keep: Optional[torch.Tensor] = None,  # (B, L) bool corruption keep mask
     u_keep: Optional[torch.Tensor] = None,  # (B, L) its uniforms
     neg: Optional[torch.Tensor] = None,  # (B, num_neg * L) exact negatives
     pool: Optional[torch.Tensor] = None,  # (K,) pooled negative ids
     u_sel: Optional[torch.Tensor] = None,  # (B, K) pool selection uniforms
-    coll=None,  # parallel/mesh.py Collectives: a sharded step
 ) -> Dict[str, torch.Tensor]:
     """One sparse minibatch step (cdae_tpu's ``_train_step``): the batched
     per-user corruption, encode, decode at the positives and the sampled
@@ -1061,35 +991,34 @@ def _train_step(
     exact negatives ``neg``, or the ``pool`` ids and their selection
     uniforms ``u_sel``.
 
-    ``coll`` (parallel/mesh.py ``Collectives``; None: the single-device
-    step) makes this one rank's step of a sharded run: the batch arrays are
-    still the whole batch, of which the step takes its rows
-    (``coll.rows``); W / V / b' are the rank's item blocks and Wu / Uu its
-    user blocks. Item rows are gathered from their owners
-    (``coll.gather_items``), each aggregation sums into the rank's own
-    block only, the dense gradients are summed over 'data' before the one
-    B2 launch, and the user rows update on their owners. The draws are
-    the block's rows of the single-device step's; injected draws are the
-    block's. ``row_update`` has no sharded form."""
+    ``coll`` (parallel/mesh.py ``Collectives``) places the step on its
+    rank of the mesh: the batch arrays are the whole batch, of which the
+    step takes its rows (``coll.rows``); W / V / b' are the rank's item
+    blocks and Wu / Uu its user blocks. Item rows are gathered from their
+    owners (``coll.gather_items``), each aggregation sums into the rank's
+    own block only, the dense gradients are summed over 'data' before the
+    one B2 launch, and the user rows update on their owners. The draws
+    are the block's rows of the whole step's; injected draws are the
+    block's. On one process every block is whole and every collective
+    returns its input."""
     W = params["W"]
-    I, D = W.shape
-    B, L = items.shape
+    n_tbl, D = W.shape  # rows of this rank's item tables
     dt = W.dtype
     lam, lr, beta = cfg.lambda_, cfg.learn_rate, cfg.beta
     q = cfg.corruption_ratio
     sm = _scatter_mode(cfg)
     use_row = bool(cfg.row_update)
+    if use_row and coll.mesh.size > 1:
+        # the touched-row apply writes whole rows of whole tables, in the
+        # reference's order: it has no form over blocks
+        raise ValueError("row_update has no sharded step")
     pack = cfg.packed_io is not False and not cfg.asymmetric and not use_row
     items = items.long()
-    uids_all, weight_all, sl = uids, weight, None
-    n_tbl = I  # rows of this rank's item tables
-    if coll is not None:
-        if use_row:
-            raise ValueError("row_update has no sharded step")
-        sl = coll.rows(B)
-        uids, items, mask, lengths, weight = (
-            x[sl] for x in (uids, items, mask, lengths, weight))
-        B, I = items.shape[0], coll.num_items
+    uids_all, weight_all = uids, weight
+    sl = coll.rows(uids.shape[0])
+    uids, items, mask, lengths, weight = (
+        x[sl] for x in (uids, items, mask, lengths, weight))
+    L, I = items.shape[1], coll.num_items
     need_keep = keep is None and u_keep is None and q > 0.0
     need_neg = ((pool is None or u_sel is None) if cfg.neg_pool
                 else neg is None and cfg.num_neg > 0)
@@ -1102,9 +1031,6 @@ def _train_step(
             neg, pool, u_sel = (drawn.get(k) for k in ("neg", "pool",
                                                         "u_sel"))
 
-    def item_rows(table, ids):
-        return table[ids] if coll is None else coll.gather_items(table, ids)
-
     with span("cdae.step.forward"):
         if keep is None:
             keep = mask & (u_keep > q) if q > 0.0 else mask
@@ -1116,18 +1042,15 @@ def _train_step(
         items_c = items.clamp(0, I - 1)
         scale = input_scale(q, cfg.scaled)
 
-        user_rows = None
-        if coll is not None:
-            user_rows = {n: coll.gather_users(params[n], uids_all)[sl]
-                         for n in ("Uu", "Wu") if n in params}
-
         # ---- forward: one gather of the positives' W rows serves the
         # encoder, the tied decoder and the input-side gradients
-        enc_rows = item_rows(W, items_c)  # (B, L, D)
+        enc_rows = coll.gather_items(W, items_c)  # (B, L, D)
+        user_rows = {n: coll.gather_users(params[n], uids_all)[sl]
+                     for n in ("Uu", "Wu") if n in params}
         z = _hidden(params, uids, items, keep, scale, cfg, rows=enc_rows,
                     user_rows=user_rows)
         dz = _z_one_minus_z(z, cfg)
-        bp_items = item_rows(params["b_prime"], items_c)
+        bp_items = coll.gather_items(params["b_prime"], items_c)
 
         # ---- positives (truth 1)
         if cfg.asymmetric:
@@ -1155,17 +1078,16 @@ def _train_step(
             if use_row:
                 neg_sets.append((ids, table_vals, bp_vals, live))
                 return
-            if coll is not None:
-                ids = coll.own_items(ids)
             with span("cdae.step.scatter"):
-                neg_sum = _aggregate(ids, (table_vals, bp_vals), n_tbl, sm,
+                neg_sum = _aggregate(coll.own_items(ids),
+                                     (table_vals, bp_vals), n_tbl, sm,
                                      neg_sum)
         if cfg.neg_pool:
             with span("cdae.step.pool"):
                 K = int(cfg.neg_pool)
                 pool = pool.long()
-                dec_pool = item_rows(dec_table, pool)  # (K, D)
-                bp_pool = item_rows(params["b_prime"], pool)
+                dec_pool = coll.gather_items(dec_table, pool)  # (K, D)
+                bp_pool = coll.gather_items(params["b_prime"], pool)
                 pred_pool = (_mm(z, dec_pool.t(), cfg).to(dt)
                              + bp_pool[None, :])
                 rated = is_rated(items, lengths, pool)  # (B, K)
@@ -1190,7 +1112,8 @@ def _train_step(
             for k in range(max(cfg.num_neg, 0)):
                 nk = neg[:, k * L:(k + 1) * L].long()
                 pred_nk, dec_nk = _decode_at(params, z, nk, cfg, coll)
-                bp_nk = item_rows(params["b_prime"], nk.clamp(0, I - 1))
+                bp_nk = coll.gather_items(params["b_prime"],
+                                          nk.clamp(0, I - 1))
                 # the sentinel id num_items (an empty complement) is no
                 # negative: its slot carries no gradient
                 nk_live = mask & (nk < I)
@@ -1214,8 +1137,7 @@ def _train_step(
             out_vals = (gz_pos + lam * dec_pos) * direct[..., None]
 
         # ---- input-side (encoder) gradients of the kept items
-        uu_rows = (None if not cfg.linear_function else params["Uu"][uids]
-                   if coll is None else user_rows["Uu"])
+        uu_rows = user_rows.get("Uu")
         base = (uu_rows * hg if cfg.linear_function else hg) * scale
         in_grad = (base[:, None, :] + lam * enc_rows
                    + (0.0 if cfg.asymmetric else gz_pos)) * keep_f[..., None]
@@ -1251,12 +1173,11 @@ def _train_step(
     else:
         with span("cdae.step.scatter"):
             dense = _sparse_dense_grads(
-                n_tbl, D, items if coll is None else coll.own_items(items),
-                out_vals, in_grad, bp_pos_vals, neg_sum,
-                pack=pack, asymmetric=cfg.asymmetric, mode=sm)
+                n_tbl, D, coll.own_items(items), out_vals, in_grad,
+                bp_pos_vals, neg_sum, pack=pack, asymmetric=cfg.asymmetric,
+                mode=sm)
         dense["b"] = d_b
-    if coll is not None:
-        dense = coll.data_sum_all(dense)
+    dense = coll.data_sum_all(dense)
     if profiler_active():
         count("table_bytes", sum(_adagrad_bytes(params, name, g.numel())
                                  for name, g in dense.items() if name != "b"))
@@ -1267,10 +1188,12 @@ def _train_step(
              for name, g in dense.items()],
             lr, beta, cfg.using_adagrad, bool(cfg.use_pallas))
         _user_row_steps(
-            params, uids, w_user, cfg, coll, uids_all, weight_all, {
-                "Wu": (lambda: (hg + lam * (params["Wu"][uids] if coll is None
-                                            else user_rows["Wu"]))
-                       * w_user[:, None]) if cfg.user_factor else None,
+            params, cfg, coll, uids_all, weight_all, {
+                # Wu's rows read anew for its gradient (ROADMAP, Queue 5:
+                # the encoder's rows would save this gather)
+                "Wu": (lambda: (hg + lam * coll.gather_users(
+                    params["Wu"], uids_all)[sl]) * w_user[:, None])
+                if cfg.user_factor else None,
                 "Uu": (lambda: (lam * uu_rows + hg * sum_kept_W)
                        * w_user[:, None])
                 if cfg.linear_function else None,
@@ -1325,23 +1248,35 @@ def _sparse_dense_grads(I: int, D: int, items, out_vals, in_grad,
 
 
 def _data_loss_batch(params, uids, items, mask, weight, seed: int, *,
-                     cfg: CDAEConfig, loss: Loss, uniforms=None
-                     ) -> torch.Tensor:
+                     cfg: CDAEConfig, loss: Loss, coll: Collectives,
+                     uniforms=None) -> torch.Tensor:
     """Sparse-batch reconstruction loss over the positives, averaged over
     ``num_corruptions`` corruptions. ``uniforms[c]`` (optional) is the
-    (B, L) corruption draw of corruption c; otherwise draw c of ``seed``."""
+    (B, L) corruption draw of corruption c; otherwise draw c of ``seed``.
+    ``coll``: this rank's rows of the batch, the item and user rows
+    gathered from their owners, the loss summed over 'data'."""
     dt = params["W"].dtype
     q = cfg.corruption_ratio
     ncorr = cfg.num_corruptions
+    uids_all = uids
+    sl = coll.rows(uids.shape[0])
+    uids, items, mask, weight = (x[sl] for x in (uids, items, mask, weight))
     mask_f = mask.to(dt) * weight.to(dt)[:, None]
     if uniforms is None and q > 0.0:
         uniforms = _draw_uniforms(seed, tuple(mask.shape), range(ncorr), cfg,
-                                  mask.device)
+                                  mask.device,
+                                  (sl.start, 0, (uids_all.shape[0],
+                                                 mask.shape[1])))
     scale = input_scale(q, cfg.scaled)
+    items = items.long()
+    user_rows = {n: coll.gather_users(params[n], uids_all)[sl]
+                 for n in ("Uu", "Wu") if n in params}
+    rows = coll.gather_items(params["W"], items.clamp(0, coll.num_items - 1))
     total = torch.zeros((), dtype=torch.float32, device=mask.device)
     for c in range(ncorr):
         keep = mask & (uniforms[c] > q) if q > 0.0 else mask
-        z = _hidden(params, uids, items, keep, scale, cfg)
-        preds, _ = _decode_at(params, z, items.long(), cfg)
+        z = _hidden(params, uids, items, keep, scale, cfg, rows=rows,
+                    user_rows=user_rows)
+        preds, _ = _decode_at(params, z, items, cfg, coll)
         total = total + torch.sum(loss.evaluate(preds, 1.0) * mask_f)
-    return total / ncorr
+    return coll.data_sum(total) / ncorr

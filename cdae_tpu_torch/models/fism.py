@@ -49,6 +49,7 @@ from cdae_tpu_torch.data.dataset import Interactions
 from cdae_tpu_torch.models.base import (
     ModelState,
     RecsysModel,
+    dense_fits,
     iter_user_batches,
     resolve_device,
 )
@@ -147,8 +148,7 @@ class FISM(RecsysModel):
             state.aux["global_mean"] = float(np.mean(data.ratings))
         dense = cfg.dense_mode
         if dense is None:
-            dense = (U * I <= 1_500_000_000
-                     and cfg.batch_size * I * 40 <= 4_000_000_000)
+            dense = dense_fits(U, I, cfg.batch_size)
         if dense and not self.pairwise:
             state.aux["dense_R"] = self._dense_R(data)
         return state

@@ -82,7 +82,12 @@ import numpy as np
 import torch
 
 from cdae_tpu_torch.data.dataset import Interactions
-from cdae_tpu_torch.models.base import ModelState, RecsysModel, resolve_device
+from cdae_tpu_torch.models.base import (
+    ModelState,
+    RecsysModel,
+    dense_fits,
+    resolve_device,
+)
 from cdae_tpu_torch.ops.losses import Loss
 from cdae_tpu_torch.ops.pallas_kernels import (
     gather_rows_mxu,
@@ -101,10 +106,6 @@ from cdae_tpu_torch.solver.optimizer import (
 from cdae_tpu_torch.utils.random import step_seed
 
 _MASK32 = 0xFFFFFFFF
-# cdae_tpu's auto rule for the user slab: the (U, I) matrix and the (B, I)
-# slabs' bytes
-_DENSE_MAX_CELLS = 1_500_000_000
-_DENSE_MAX_SLAB_BYTES = 4_000_000_000
 # the most elements of one user chunk of a slab's 3-D cube
 _CUBE_ELEMS = 1 << 28
 
@@ -591,8 +592,7 @@ class _MFBase(RecsysModel):
         state.aux["coo"] = (data.users, data.items, data.ratings)
         dense = cfg.dense_mode
         if dense is None:
-            dense = (self.dense_auto and U * I <= _DENSE_MAX_CELLS
-                     and cfg.batch_size * I * 40 <= _DENSE_MAX_SLAB_BYTES)
+            dense = self.dense_auto and dense_fits(U, I, cfg.batch_size)
         if dense:
             state.aux["dense_R"] = self._dense_R(data)
             if self.uses_ratings:
@@ -971,7 +971,7 @@ class WARP(_MFBase):
         U, I = state.num_users, state.num_items
         use_dense = self.cfg.dense_mode
         if use_dense is None:
-            use_dense = U * I <= _DENSE_MAX_CELLS
+            use_dense = dense_fits(U, I, 0)  # the (U, I) mask alone
         if not use_dense:
             return ()
         if "rated_mask" not in state.aux:

@@ -271,9 +271,11 @@ def gather_params(mesh: Mesh, params: Dict, specs: Dict[str, Spec],
 
 class Collectives:
     """What a sharded train step needs of the mesh, for one model's
-    dimensions: the single-device step functions take one of these as
-    their optional ``coll`` argument (None: the single-device step, bit for
-    bit unchanged) and call it where GSPMD put its collectives.
+    dimensions: CDAE's step functions always take one (a 1 x 1 mesh's on
+    one process, where every collective returns its input and every block
+    is the whole table), the MF family's as their optional ``coll``
+    argument (None: the single-device step); they call it where GSPMD put
+    its collectives.
 
     - ``rows(B)``: this rank's contiguous block of a batch's B rows, as
       ``P('data')`` splits them (B must divide over 'data').
@@ -407,10 +409,12 @@ class Collectives:
         (ulo, uhi), (ilo, ihi) = self.users, self.items
         u = torch.as_tensor(users, dtype=torch.long, device=self.mesh.device)
         i = torch.as_tensor(items, dtype=torch.long, device=self.mesh.device)
-        keep = (u >= ulo) & (u < uhi) & (i >= ilo) & (i < ihi)
         R = torch.zeros((uhi - ulo, ihi - ilo), dtype=torch.int8,
                         device=self.mesh.device)
-        R[u[keep] - ulo, i[keep] - ilo] = 1
+        if self.users_split or self.items_split:  # a block: its own pairs
+            keep = (u >= ulo) & (u < uhi) & (i >= ilo) & (i < ihi)
+            u, i = u[keep] - ulo, i[keep] - ilo
+        R[u, i] = 1
         return R
 
     def own_users(self, uids: torch.Tensor):
@@ -419,6 +423,16 @@ class Collectives:
         lo, hi = self.users
         owned = (uids >= lo) & (uids < hi)
         return torch.where(owned, uids - lo, 0), owned
+
+    def own_rows(self, uids: torch.Tensor, live: torch.Tensor):
+        """(local row ids, live mask) of a whole batch's global user ids:
+        rows of this rank's user block, live where ``live`` and the row is
+        the rank's own. Where the users are not split every row is its
+        own: ``uids`` and ``live`` as they are, no device op."""
+        if not self.users_split:
+            return uids, live
+        rows, owned = self.own_users(uids)
+        return rows, live & owned
 
     def own_items(self, ids: torch.Tensor) -> torch.Tensor:
         """Global item ids as rows of this rank's item block; ids outside

@@ -3,13 +3,14 @@ cdae_tpu/parallel/sharded.py).
 
 cdae_tpu compiles the single-device step under GSPMD with the batch over
 'data', W / V / b' over 'model' and Wu / Uu over 'data', and XLA inserts
-the collectives. Here each rank runs the SAME single-device step function
-(models/cdae.py ``_train_step`` / ``_dense_train_step``, the slabs of
-models/mf.py and models/fism.py) with its ``coll`` argument set
+the collectives. Here each rank runs the SAME step function as one
+device (models/cdae.py ``_train_step`` / ``_dense_train_step``, the slabs
+of models/mf.py and models/fism.py) with its rank's ``coll``
 (parallel/mesh.py ``Collectives``): the step takes its rows of the batch,
 works on its table blocks with the port's kernels (B1 at its offsets, B8
 into its own item block, one B2 launch over its blocks, B3 for its score
-block) and calls the collectives where GSPMD put them.
+block) and calls the collectives where GSPMD put them. These are
+cdae_tpu's names for those bindings.
 """
 
 from __future__ import annotations
@@ -17,15 +18,12 @@ from __future__ import annotations
 import functools
 
 import numpy as np
-import torch
 
 from cdae_tpu_torch.models.cdae import (
     CDAE,
     _decode,
     _dense_train_step,
-    _finish_hidden,
-    _hidden,
-    _mm,
+    _serve_hidden,
     _train_step,
 )
 from cdae_tpu_torch.parallel.mesh import (
@@ -76,31 +74,6 @@ def make_sharded_fism_dense_step(model, mesh: Mesh, num_users: int,
                              loss=model.loss, coll=coll)
 
 
-def sharded_hidden(params, coll, uids, rated_items, rated_mask, cfg,
-                   R_block=None):
-    """Hidden codes of this rank's rows ``coll.rows(B)`` of a batch of
-    users (``uids`` whole): from the uncorrupted padded rated rows (item
-    rows gathered from their owners) or, with ``R_block``, a dense encode
-    of the rank's block of dense_R summed over 'model'."""
-    sl = coll.rows(uids.shape[0])
-    user_rows = {n: coll.gather_users(params[n], uids)[sl]
-                 for n in ("Uu", "Wu") if n in params}
-    off = cfg.corruption_ratio == 1.0
-    if R_block is not None:
-        dt = params["W"].dtype
-        rows = coll.batch_rows(R_block, uids).to(dt)
-        if off:
-            rows = torch.zeros_like(rows)
-        h = coll.model_sum(_mm(rows, params["W"], cfg).to(dt))
-        return _finish_hidden(h, params, user_rows, cfg)
-    items = rated_items[sl].long()
-    mask = torch.zeros_like(rated_mask[sl]) if off else rated_mask[sl]
-    rows = coll.gather_items(params["W"],
-                             items.clamp(0, coll.num_items - 1))
-    return _hidden(params, uids[sl], items, mask, 1.0, cfg, rows=rows,
-                   user_rows=user_rows)
-
-
 def make_sharded_scores(model: CDAE, mesh: Mesh, num_users: int,
                         num_items: int):
     """Full-catalog scoring of one rank: ``fn(params, uids, rated_items,
@@ -110,8 +83,8 @@ def make_sharded_scores(model: CDAE, mesh: Mesh, num_users: int,
     coll = mesh.collectives(num_users, num_items)
 
     def fn(params, uids, rated_items, rated_mask, R_block=None):
-        z = sharded_hidden(params, coll, uids, rated_items, rated_mask,
-                           model.cfg, R_block)
+        z = _serve_hidden(params, uids, rated_items, rated_mask,
+                          cfg=model.cfg, coll=coll, dense_R=R_block)
         return _decode(params, z, model.cfg)
 
     return fn

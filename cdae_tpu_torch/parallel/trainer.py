@@ -3,11 +3,13 @@ Solver / Evaluation (port of cdae_tpu/parallel/trainer.py).
 
 Each wrapper holds the single-device model (``inner``) and this rank's
 blocks of its tables (parallel/mesh.py layouts), and trains by calling the
-inner model's own step functions with a ``coll`` argument
-(parallel/sharded.py). Every rank runs every call: the collectives inside
-the steps, the evaluation (``batch_topk`` is a collective too) and the
-delegating methods, which gather the tables explicitly (``gathered``)
-where GSPMD gathered them implicitly. Only rank 0 logs and writes.
+inner model's own step functions with this rank's ``Collectives``: a CDAE
+state holds it (the epoch, loss and scoring are CDAE's own), the MF
+family's steps take it as their ``coll`` argument. Every rank runs every
+call: the collectives inside the steps, the evaluation (``batch_topk`` is
+a collective too) and the delegating methods, which gather the tables
+explicitly (``gathered``) where GSPMD gathered them implicitly. Only rank
+0 logs and writes.
 
 cdae_tpu switches its Pallas kernels off on these paths (a GSPMD
 workaround: a Pallas kernel is a single-device program). The port keeps
@@ -32,11 +34,10 @@ import torch
 from cdae_tpu_torch.data.dataset import Interactions
 from cdae_tpu_torch.models.base import ModelState, RecsysModel
 from cdae_tpu_torch.models.cdae import (
-    _LOSS_STREAM,
     CDAE,
     CDAEConfig,
     CDAEState,
-    _dense_data_loss,
+    _serve_hidden,
 )
 from cdae_tpu_torch.parallel.mesh import (
     Mesh,
@@ -46,14 +47,7 @@ from cdae_tpu_torch.parallel.mesh import (
     mf_param_specs,
     shard_params,
 )
-from cdae_tpu_torch.parallel.sharded import (
-    make_sharded_dense_step,
-    make_sharded_scores,
-    make_sharded_train_step,
-    sharded_hidden,
-)
 from cdae_tpu_torch.parallel.topk import local_rated, merge_topk
-from cdae_tpu_torch.utils.random import step_seed
 
 
 class _Sharded(RecsysModel):
@@ -68,11 +62,10 @@ class _Sharded(RecsysModel):
         self.device = self.mesh.device
 
     def _reset_inner(self, data: Interactions, seed: int) -> ModelState:
-        """The inner model's reset with dense_R built as this rank's block
-        alone (cdae_tpu's P('data', 'model')), kept as ``dense_R_block``:
-        no rank holds the whole matrix."""
-        coll = self.mesh.collectives(data.num_users, data.num_items)
-        self.inner.dense_block = coll.dense_block
+        """The inner model's reset on this rank's mesh, so dense_R is built
+        as this rank's block alone (cdae_tpu's P('data', 'model')), kept as
+        ``dense_R_block``: no rank holds the whole matrix."""
+        self.inner.mesh = self.mesh
         state = self.inner.reset(data, seed)
         if "dense_R" in state.aux:
             state.aux["dense_R_block"] = state.aux.pop("dense_R")
@@ -146,7 +139,8 @@ class ShardedCDAE(_Sharded):
     'model', Wu / Uu over 'data'. ``dense_mode=True`` runs the dense step
     on the rank's (B / n_data, I / n_model) slabs; otherwise (None too, as
     in cdae_tpu) the sparse step. The fused step (B4) is never taken, as in
-    cdae_tpu."""
+    cdae_tpu. The state holds this rank's ``Collectives`` (``aux["coll"]``),
+    so the inner CDAE's own epoch, loss and scores run on its blocks."""
 
     name = "ShardedCDAE"
 
@@ -159,69 +153,30 @@ class ShardedCDAE(_Sharded):
         self.inner = CDAE(cfg, device=self.device)
         self.cfg = self.inner.cfg
         self.loss = self.inner.loss
+        # the single-device order, step seeds and num_corruptions loop
+        self.train_one_iteration = self.inner.train_one_iteration
+        self.data_loss = self.inner.data_loss
 
     def reset(self, data: Interactions, seed: int = 0) -> CDAEState:
         self._check_batch(self.cfg.batch_size)
         state = self._reset_inner(data, seed)
         self._shard(state, cdae_param_specs(state.params))
-        U, I = state.num_users, state.num_items
-        self._step = make_sharded_train_step(self.inner, self.mesh, U, I)
-        self._scores = make_sharded_scores(self.inner, self.mesh, U, I)
-        self._dense_step = None
-        if "dense_R_block" in state.aux:
-            self._dense_step = make_sharded_dense_step(self.inner,
-                                                       self.mesh, U, I)
+        state.aux["coll"] = self.coll
         return state
-
-    def train_one_iteration(self, state: CDAEState, seed: int = 0
-                            ) -> CDAEState:
-        """One epoch in the single-device order: the dense batches, or the
-        sparse batches in host order, ``num_corruptions`` steps each, with
-        the single-device step seeds."""
-        ncorr = self.cfg.num_corruptions
-        if self._dense_step is not None:
-            R = state.aux["dense_R_block"]
-            uid_mat, w_mat = self.inner._dense_batches(state)
-            for j in range(uid_mat.shape[0]):
-                for c in range(ncorr):
-                    self._dense_step(state.params, R, uid_mat[j], w_mat[j],
-                                     step_seed(seed, state.step, j, c))
-        else:
-            for j, batch in enumerate(self.inner._device_batches(state)):
-                for c in range(ncorr):
-                    self._step(state.params, *batch,
-                               step_seed(seed, state.step, j, c))
-        state.step += 1
-        return state
-
-    def data_loss(self, state: CDAEState, sample_size: int = 0) -> float:
-        """The single-device loss; in dense mode summed over the mesh from
-        the ranks' blocks of dense_R and of the tables."""
-        R = state.aux.get("dense_R_block")
-        if R is None:
-            return super().data_loss(state, sample_size)
-        total = 0.0
-        for j, batch in enumerate(zip(*self.inner._dense_batches(state))):
-            total += float(_dense_data_loss(
-                state.params, R, *batch,
-                step_seed(_LOSS_STREAM, state.step, j, 0), cfg=self.cfg,
-                loss=self.loss, coll=self.coll))
-        return total
 
     def user_representations(self, state: CDAEState) -> np.ndarray:
         return self.inner.user_representations(self.gathered(state))
 
     def batch_scores(self, state: CDAEState, uids, rated_items, rated_mask):
-        """The whole (B, I) scores on every rank, from the ranks' blocks."""
+        """The whole (B, I) scores on every rank, from the ranks' blocks
+        (the batch padded to divide over 'data')."""
         B, uids, rated_items, rated_mask = _pad_rows(
             self.mesh.shape["data"], uids,
             (torch.as_tensor(rated_items, device=self.device),
              state.num_items),
             (torch.as_tensor(rated_mask, device=self.device), False))
-        blk = self._scores(state.params, uids.to(self.device), rated_items,
-                           rated_mask, state.aux.get("dense_R_block"))
-        full = self.coll.data_gather(self.coll.model_gather(blk, dim=1))
-        return full[:B]
+        return self.inner.batch_scores(state, uids, rated_items,
+                                       rated_mask)[:B]
 
     def batch_topk(self, state: CDAEState, uids, rated_items, rated_mask,
                    k: int = 10):
@@ -249,8 +204,8 @@ class ShardedCDAE(_Sharded):
         uids = uids.to(dev)
         coll, p, cfg = self.coll, state.params, self.cfg
         R_block = state.aux.get("dense_R_block")
-        z = sharded_hidden(p, coll, uids, rated_items, rated_mask, cfg,
-                           R_block)
+        z = _serve_hidden(p, uids, rated_items, rated_mask, cfg=cfg,
+                          coll=coll, dense_R=R_block)
         sl = coll.rows(uids.shape[0])
         table = p["V"] if cfg.asymmetric else p["W"]
         lo, hi = coll.items

@@ -2513,7 +2513,8 @@ def _sparse_cell(torch, model, state, batches):
     def run_pass(offset):
         for j, batch in enumerate(batches):
             _train_step(state.params, *batch, SEED + offset + j,
-                        cfg=model.cfg, loss=model.loss)
+                        cfg=model.cfg, loss=model.loss,
+                        coll=state.aux["coll"])
 
     run_pass(0)  # warm-up
     torch.cuda.synchronize()
@@ -2680,11 +2681,11 @@ def phase_sparse_ml1m_checks(torch, held):
             if dense:
                 _dense_train_step(state.params, state.aux["dense_R"],
                                   uids.long(), weight, SEED, cfg=model.cfg,
-                                  loss=model.loss)
+                                  loss=model.loss, coll=state.aux["coll"])
             else:
                 _train_step(state.params, uids.long(), items.long(), mask,
                             lengths.long(), weight, SEED, cfg=model.cfg,
-                            loss=model.loss)
+                            loss=model.loss, coll=state.aux["coll"])
             out[dense] = state.params
         return out[False], out[True]
 
@@ -3922,7 +3923,8 @@ def phase_sharded_nccl(torch, tmp, held, device="cuda"):
                 u = torch.as_tensor(uids, dtype=torch.long, device=dev)
                 cfg = single.model.cfg
                 z = _serve_hidden(single.state.params, u, rated, mask,
-                                  cfg=cfg)
+                                  cfg=cfg,
+                                  coll=single.state.aux["coll"])
                 ref = _topk_from_hidden(z, single.state.params, u, rated, R,
                                         cfg=cfg, mode=mode, k=10)
                 same_kernel &= bool(torch.equal(got[-1], ref))

@@ -180,7 +180,7 @@ def test_sparse_step_matches_cdae_tpu(variant, monkeypatch):
             assert (draws["neg"] == I).any()  # the sentinel is exercised
         jp = jcdae._train_step(jp, *jb[j], key, cfg=jm.cfg, loss=jm.loss)
         out = tcdae._train_step(ts.params, *tb[j], 0, cfg=tm.cfg,
-                                loss=tm.loss, **draws)
+                                loss=tm.loss, coll=ts.aux["coll"], **draws)
         assert out is ts.params  # updated in place
     _check(ts.params, jp, rtol=1e-5)
 
@@ -275,7 +275,8 @@ def test_sparse_step_draws_from_its_seed():
                 _, _, tm, ts = _pair(dict(neg_pool=pool))
                 tm.cfg = tcdae.dataclasses.replace(tm.cfg, fast_rng=fast_rng)
                 tcdae._train_step(ts.params, *tm._device_batches(ts)[-1],
-                                  seed, cfg=tm.cfg, loss=tm.loss)
+                                  seed, cfg=tm.cfg, loss=tm.loss,
+                                  coll=ts.aux["coll"])
                 return ts.params["W"]
 
             a, b, c = step(5), step(5), step(6)
@@ -327,11 +328,11 @@ def test_sparse_step_equals_dense_step_without_draws():
         if dense:
             tcdae._dense_train_step(st.params, st.aux["dense_R"],
                                     uids.long(), weight, 3, cfg=m.cfg,
-                                    loss=m.loss)
+                                    loss=m.loss, coll=st.aux["coll"])
         else:
             tcdae._train_step(st.params, uids.long(), items.long(), mask,
                               lengths.long(), weight, 3, cfg=m.cfg,
-                              loss=m.loss)
+                              loss=m.loss, coll=st.aux["coll"])
         out[dense] = st.params
     for k in out[True]:
         torch.testing.assert_close(out[False][k], out[True][k], rtol=2e-5,

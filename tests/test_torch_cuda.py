@@ -1051,9 +1051,11 @@ def test_cdae_sparse_step_equals_dense_step_without_draws(cuda):
         torch.as_tensor(x, device="cuda")
         for x in (b.uids, b.items, b.mask, b.lengths, b.weight))
     _train_step(state.params, uids.long(), items.long(), mask,
-                lengths.long(), weight, 3, cfg=model.cfg, loss=model.loss)
+                lengths.long(), weight, 3, cfg=model.cfg, loss=model.loss,
+                coll=state.aux["coll"])
     _dense_train_step(dstate.params, dstate.aux["dense_R"], uids.long(),
-                      weight, 3, cfg=dense.cfg, loss=dense.loss)
+                      weight, 3, cfg=dense.cfg, loss=dense.loss,
+                      coll=dstate.aux["coll"])
     for k in state.params:
         torch.testing.assert_close(state.params[k], dstate.params[k],
                                    rtol=2e-5, atol=1e-6)
@@ -1590,11 +1592,11 @@ def test_warp_violator_select_row_offset_cuts_the_whole_batch(
 
 @pytest.mark.cuda
 def test_recommend_spans_and_h2d_bytes_on_the_card(cuda, tmp_path):
-    """Under a profiler, a recommend on the card tallies its spans, counts
-    its rows built on the card in ``rows_device``, and as ``h2d_bytes`` the
-    host arrays it copies (the uids only); ``trace`` synchronises before it
-    stops, so its file holds the request's last kernel, launched inside
-    ``serve.topk``."""
+    """Under a profiler, a recommend on the card tallies its spans, builds
+    its rows on the card (one launch of csr_rows), and counts as
+    ``h2d_bytes`` the host arrays it copies (the uids only); ``trace``
+    synchronises before it stops, so its file holds the request's last
+    kernel, launched inside ``serve.topk``."""
     import json
 
     from cdae_tpu_torch.models.cdae import CDAE, CDAEConfig
@@ -1607,13 +1609,14 @@ def test_recommend_spans_and_h2d_bytes_on_the_card(cuda, tmp_path):
     model.recommend(state, uids, train, k=10)  # warm
     torch.cuda.synchronize()
     profiling.reset_tallies()
+    rows_launches = P.csr_rows.launches
     with profiling.trace(str(tmp_path)):
         model.recommend(state, uids, train, k=10)
     tallies = profiling.tallies()
     # the uids alone, int64, one copy for csr_rows and batch_scores; the
     # rows are built on the card from the CSR the warm request copied there
     assert tallies.counters["h2d_bytes"] == 8 * len(uids)
-    assert tallies.counters["rows_device"] == 1
+    assert P.csr_rows.launches - rows_launches == 1
     assert {n: c for n, (c, _) in tallies.spans.items()} == {
         "serve.request": 1, "serve.rows": 1, "serve.scores": 1,
         "serve.topk": 1}
@@ -1722,18 +1725,20 @@ def test_the_device_csr_is_uploaded_once(cuda):
                                                  train.num_items), k=10)
     torch.cuda.synchronize()
     csr = train.csr()
-    reads = []
+    reads, rows = [], []
     for _ in range(2):
         profiling.reset_tallies()
+        rows_launches = P.csr_rows.launches
         with torch.profiler.profile():
             model.recommend(state, uids, train, k=10)
         reads.append(profiling.tallies().counters)
+        rows.append(P.csr_rows.launches - rows_launches)
     profiling.reset_tallies()
     per_request = 8 * len(uids)  # the int64 uids
     assert reads[0]["h2d_bytes"] == (per_request + 8 * len(csr.indptr)
                                      + 4 * len(csr.indices))
     assert reads[1]["h2d_bytes"] == per_request
-    assert reads[0]["rows_device"] == reads[1]["rows_device"] == 1
+    assert rows == [1, 1]  # each request's rows built on the card
 
 
 @pytest.mark.cuda

@@ -279,10 +279,48 @@ def test_make_batch_matches_cdae_tpu():
             np.testing.assert_array_equal(got, np.asarray(want))
 
 
-@pytest.mark.parametrize("kind", ["imf", "fism"])
+def _sharded_cdae_step_is_cdaes(kind, data, mesh):
+    """One step of ShardedCDAE over a 1 x 1 mesh (its inner CDAE's step
+    under the wrapper's Collectives, on its sharded tables) and of CDAE on
+    the first batch: the same tables, bit for bit. ShardedCDAE's epoch and
+    loss are the inner CDAE's, not its own."""
+    from cdae_tpu_torch.models import CDAE, CDAEConfig
+    from cdae_tpu_torch.models import cdae as tcdae
+    from cdae_tpu_torch.parallel.trainer import ShardedCDAE
+
+    assert "train_one_iteration" not in vars(ShardedCDAE)
+    assert "data_loss" not in vars(ShardedCDAE)
+    cfg = CDAEConfig(num_dim=4, batch_size=8, num_neg=2, loss="SQUARE",
+                     corruption_ratio=0.3, use_pallas=True, fast_rng=True,
+                     dense_mode=kind == "cdae_dense",
+                     neg_pool=16 if kind == "cdae_pool" else None)
+    sharded = ShardedCDAE(cfg, mesh)
+    assert sharded.train_one_iteration == sharded.inner.train_one_iteration
+    assert sharded.data_loss == sharded.inner.data_loss
+    runs = []
+    for model in (CDAE(sharded.cfg, device="cpu"), sharded):
+        state = model.reset(data, seed=1)
+        inner = getattr(model, "inner", model)
+        kw = dict(cfg=inner.cfg, loss=inner.loss, coll=state.aux["coll"])
+        R = tcdae._resident_R(state)
+        if R is None:
+            tcdae._train_step(state.params, *inner._device_batches(state)[0],
+                              11, **kw)
+        else:
+            uids, w = (t[0] for t in inner._dense_batches(state))
+            tcdae._dense_train_step(state.params, R, uids, w, 11, **kw)
+        runs.append(state.params)
+    assert set(runs[0]) == set(runs[1])
+    for k in runs[0]:
+        assert torch.equal(runs[0][k], runs[1][k]), k
+
+
+@pytest.mark.parametrize("kind", ["imf", "fism", "cdae_sparse", "cdae_pool",
+                                  "cdae_dense"])
 def test_sharded_slab_steps_one_process_are_the_single_steps(kind):
     """make_sharded_mf_dense_step / make_sharded_fism_dense_step over a
-    1 x 1 mesh: the single-device slab step, bit for bit."""
+    1 x 1 mesh: the single-device slab step, bit for bit; CDAE's sparse
+    (exact and pooled) and dense steps: ``_sharded_cdae_step_is_cdaes``."""
     import functools
 
     from cdae_tpu_torch.data.dataset import Interactions
@@ -296,6 +334,8 @@ def test_sharded_slab_steps_one_process_are_the_single_steps(kind):
                                     (pairs % 40).astype(np.int32),
                                     num_users=24, num_items=40)
     mesh = tmesh.make_mesh(device="cpu")
+    if kind.startswith("cdae"):
+        return _sharded_cdae_step_is_cdaes(kind, data, mesh)
     if kind == "imf":
         model = IMF(MFConfig(num_dim=4, batch_size=8, dense_mode=True,
                              fast_rng=True), device="cpu")

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-import cdae_tpu_torch.models.cdae as tcdae
+import cdae_tpu_torch.models.base as tbase
 from cdae_tpu.data.dataset import Interactions as JInteractions
 from cdae_tpu.evaluation import Evaluation as JEvaluation
 from cdae_tpu.models.popularity import Popularity as JPopularity
@@ -142,7 +142,7 @@ def test_train_task_trains_popularity_first(cache, monkeypatch):
     with the auto rule's thresholds lowered CDAE trains through the sparse
     step; --skip_popularity leaves Popularity out and --method NONE stops
     after it."""
-    monkeypatch.setattr(tcdae, "_DENSE_MAX_CELLS", 0)
+    monkeypatch.setattr(tbase, "_DENSE_MAX_CELLS", 0)
     argv = ["--method", "CDAE", "--cache_file", cache, "--num_dim", "8",
             "--cratio", "0.2", "--max_iters", "2", "--eval_iters", "2",
             "--batch_size", "16", "--device", "cpu"]

@@ -3,9 +3,9 @@ the check that decides whether a profiler runs, the one range a span
 opens, the shared no-op context and untouched tallies without one, the
 spans of a training epoch (sparse, dense and fused routes; the pool's
 span of a pooled step) and of a ``recommend``, nested as the program
-calls them, the ``table_bytes`` counter of a step's update, the
-``rows_device`` counter of its rows, the set-up phases, the ``h2d_bytes`` counter, and the benchmark's readers of the tallies
-(benchmark/metrics/)."""
+calls them, the ``table_bytes`` counter of a step's update, a request's
+rows built on its device, the set-up phases, the ``h2d_bytes`` counter,
+and the benchmark's readers of the tallies (benchmark/metrics/)."""
 
 import types
 
@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import cdae_tpu_torch.models.base as tbase
 import cdae_tpu_torch.models.cdae as tcdae
 from cdae_tpu_torch.data.dataset import Interactions
 from cdae_tpu_torch.data.dataset import movielens_line_parser as tparser
@@ -236,19 +237,27 @@ def test_a_request_traces_its_rows_scores_and_topk(data):
     assert set(prof.tallies().spans) == {"serve.request", *SERVE_CHILDREN}
 
 
-def test_rows_device_counts_one_per_request(data):
-    """Every request builds its rated rows on the model's device: under a
-    profiler ``rows_device`` counts one a ``recommend``, as many as
-    ``serve.request``; with none it counts nothing."""
+def test_rows_device_counts_one_per_request(data, monkeypatch):
+    """Every request builds its rated rows on the model's device: one
+    ``csr_rows`` call on the model's device a ``recommend``, as many as
+    ``serve.request`` counts under a profiler, and one without it."""
     model = _model("sparse")
     state = model.reset(data, seed=0)
+    calls, real = [], tbase.csr_rows
+
+    def csr_rows(indptr, indices, uids, *a, **kw):
+        calls.append(uids.device)
+        return real(indptr, indices, uids, *a, **kw)
+
+    monkeypatch.setattr(tbase, "csr_rows", csr_rows)
     model.recommend(state, np.arange(8), data, k=5)
-    assert "rows_device" not in prof.tallies().counters
+    assert calls == [model.device]
     with torch.profiler.profile():
         for n in (8, 1, 24):
             model.recommend(state, np.arange(n)[::-1], data, k=5)
     t = prof.tallies()
-    assert t.counters["rows_device"] == t.spans["serve.request"][0] == 3
+    assert len(calls) - 1 == t.spans["serve.request"][0] == 3
+    assert set(calls) == {model.device}
 
 
 def test_set_up_phases_tally_once_per_build(data):

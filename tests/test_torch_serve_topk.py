@@ -10,7 +10,7 @@ ids on both routes and as cdae_tpu's ``recommend`` from the same
 parameters, for every k up to the kernels' 32 and every serving variant;
 ``num_items`` in every slot past a user's unrated items (duplicate rated
 entries counted once); the lower id first on equal scores; k = 33 and
-small requests on the slab route; the ``topk_fused`` counter and the
+small requests on the slab route; the route each request takes and the
 serving spans on each route. The ``cuda`` case holds B6's route against
 the slab route on the card at (1,024, 200,000, 50) by the gap of a served
 item's reference score below the reference's at its rank.
@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import cdae_tpu_torch.models.base as tbase
 import cdae_tpu_torch.models.cdae as tcdae
 from cdae_tpu_torch.data.dataset import Interactions
 from cdae_tpu_torch.utils import profiling as prof
@@ -59,6 +60,28 @@ def clean_tallies():
     prof.reset_tallies()
     yield
     prof.reset_tallies()
+
+
+def _route_log(monkeypatch) -> list:
+    """The route of each later request, in order: "fused" where CDAE's
+    ``batch_topk`` answered, "slab" where ``topk_unrated`` ranked the
+    (B, I) scores."""
+    log = []
+    topk, unrated = tcdae.CDAE.batch_topk, tbase.topk_unrated
+
+    def batch_topk(self, *a, **kw):
+        ids = topk(self, *a, **kw)
+        if ids is not None:
+            log.append("fused")
+        return ids
+
+    def topk_unrated(*a, **kw):
+        log.append("slab")
+        return unrated(*a, **kw)
+
+    monkeypatch.setattr(tcdae.CDAE, "batch_topk", batch_topk)
+    monkeypatch.setattr(tbase, "topk_unrated", topk_unrated)
+    return log
 
 
 def _routes(monkeypatch, model, state, uids, train, k):
@@ -210,10 +233,11 @@ def test_k_past_the_kernels_takes_the_slab_route(train, monkeypatch):
     assert model.batch_topk(state, uids, rated, mask, MAX_K + 1) is None
     assert model.batch_topk(state, uids, rated, mask, 0) is None
     assert model.batch_topk(state, uids, rated, mask, MAX_K) is not None
+    log = _route_log(monkeypatch)
     with torch.profiler.profile():
         fused33, slab33 = _routes(monkeypatch, model, state, uids, train,
                                   MAX_K + 1)
-    assert "topk_fused" not in prof.tallies().counters
+    assert log == ["slab", "slab"]
     np.testing.assert_array_equal(fused33.numpy(), slab33.numpy())
     assert tuple(fused33.shape) == (len(uids), MAX_K + 1)
 
@@ -221,20 +245,22 @@ def test_k_past_the_kernels_takes_the_slab_route(train, monkeypatch):
 @pytest.mark.parametrize("route", ["fused", "slab"])
 def test_topk_fused_counts_one_per_request_on_the_fused_route(
         train, route, monkeypatch):
-    """``topk_fused`` counts each request ``batch_topk`` answered, and
-    the request holds rows, scores and top-k in that order on either
-    route, each once."""
+    """Each request takes the route its size picks (``batch_topk``
+    answers it on the fused route, ``topk_unrated`` on the slab route),
+    and holds rows, scores and top-k in that order on either route, each
+    once."""
     model, state = _port(train, "default", "fused_csr")
     monkeypatch.setattr(tcdae, "_TOPK_DEFER_CELLS",
                         0 if route == "fused" else NEVER)
     prof.reset_tallies()  # reset's phases
     model.recommend(state, np.arange(8), train, k=5)
     assert prof.tallies() == prof.Tallies({}, {})  # nothing without one
+    log = _route_log(monkeypatch)
     with torch.profiler.profile() as p:
         for n in (8, 1, 24):
             model.recommend(state, np.arange(n)[::-1], train, k=5)
     t = prof.tallies()
-    assert t.counters.get("topk_fused", 0) == (3 if route == "fused" else 0)
+    assert log == [route] * 3
     assert {n: c for n, (c, _) in t.spans.items()} == {
         "serve.request": 3, "serve.rows": 3, "serve.scores": 3,
         "serve.topk": 3}
@@ -249,16 +275,18 @@ def test_topk_fused_counts_one_per_request_on_the_fused_route(
         assert parts == sorted(parts)
 
 
-def test_below_the_threshold_recommend_takes_the_slab_route(train):
+def test_below_the_threshold_recommend_takes_the_slab_route(
+        train, monkeypatch):
     """At the real threshold a fixture request (25 users x 38 items) is
-    far below 2e8 cells: batch_topk defers and nothing counts."""
+    far below 2e8 cells: batch_topk defers to the slab route."""
     model, state = _port(train, "default", "fused_csr")
     uids = np.arange(train.num_users)
     assert model.batch_topk(state, uids, state.padded.items[uids],
                             state.padded.mask[uids], 10) is None
+    log = _route_log(monkeypatch)
     with torch.profiler.profile():
         model.recommend(state, uids, train, k=10)
-    assert "topk_fused" not in prof.tallies().counters
+    assert log == ["slab"]
 
 
 def _reference_gap(ref_scores, served):

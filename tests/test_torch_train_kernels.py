@@ -316,7 +316,8 @@ def test_unfused_fast_rng_step_equals_fused_step(loss, act):
         cfg = dataclasses.replace(model.cfg, fused_step=fused, fast_rng=True)
         p = {k: v.clone() for k, v in params.items()}
         tcdae._dense_train_step(p, state.aux["dense_R"], uids[0], w[0], 77,
-                                cfg=cfg, loss=model.loss)
+                                cfg=cfg, loss=model.loss,
+                                coll=state.aux["coll"])
         if not fused:
             unfused = p
     for k in unfused:

@@ -96,7 +96,7 @@ def _run_epoch(kw, bf16=False):
         u_c, u_n = _jax_uniforms(key, (B, I))
         out = tcdae._dense_train_step(
             ts.params, ts.aux["dense_R"], t_uids[j], t_w[j], 0, cfg=tm.cfg,
-            loss=tm.loss, u_corrupt=u_c, u_neg=u_n)
+            loss=tm.loss, coll=ts.aux["coll"], u_corrupt=u_c, u_neg=u_n)
         assert out is ts.params  # updated in place
     return jp, ts.params
 
@@ -132,7 +132,8 @@ def test_dense_step_draws_from_its_seed():
         _, js, tm, ts = _pair({"fast_rng": fast_rng})
         uids, w = tm._dense_batches(ts)
         tcdae._dense_train_step(ts.params, ts.aux["dense_R"], uids[0], w[0],
-                                seed, cfg=tm.cfg, loss=tm.loss)
+                                seed, cfg=tm.cfg, loss=tm.loss,
+                                coll=ts.aux["coll"])
         return ts.params["W"]
 
     for fast_rng in (False, True):
