@@ -39,9 +39,9 @@ _F = ctypes.c_float
 # cudaError_t of its launch
 _SIGNATURES = {
     "cdae_decode_scores": (_P, _P, _P, _P) + (_I,) * 4 + (_P,),
-    "cdae_fused_topk_dense": (_P,) * 8 + (_I,) * 7 + (_P,),
+    "cdae_fused_topk_dense": (_P,) * 8 + (_I,) * 7 + (_P, _I, _P),
     "cdae_fused_topk_csr": (_P, _P, _P, _P, _I, _P, _P, _P, _P)
-                           + (_I,) * 7 + (_P,),
+                           + (_I,) * 7 + (_P, _I, _P),
     "cdae_hw_uniform": (_P,) + (_I,) * 6 + (_P,),
     "cdae_adagrad_update_tables": (_P, _I, _F, _F, _P),
     "cdae_fused_step": (_P,) * 17 + (_I,) * 4 + (_F,) * 5 + (_I,) * 8 + (_P,),

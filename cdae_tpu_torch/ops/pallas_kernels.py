@@ -227,19 +227,56 @@ def _check_k(k: int) -> None:
 
 _TOPK_TILE_U = 128  # users per block of csrc/fused_topk.cu
 _TOPK_TILE_I = 128  # catalog items per tile
-_TOPK_WAVES = 2  # blocks per SM the grid aims at (two fit at D <= 64)
+_TOPK_WGMMA_MAX_D = 64  # the wgmma path up to this D, mma.sync above
 
 
-def fused_topk_grid(B: int, I: int, num_sms: int) -> Tuple[int, int]:
+def fused_topk_path(D: int) -> str:
+    """The path csrc/fused_topk.cu takes at width D (the rule of its
+    ``launch``): "wgmma" (z's fragments held in registers, one block an
+    SM) up to D = 64, "mma_sync" (z staged in chunks, two blocks an SM)
+    above."""
+    return "wgmma" if D <= _TOPK_WGMMA_MAX_D else "mma_sync"
+
+
+def fused_topk_grid(B: int, I: int, num_sms: int,
+                    waves: int = 2) -> Tuple[int, int]:
     """(splits, items_per_split) of csrc/fused_topk.cu's grid for B users
     and I items on a card of ``num_sms`` SMs: the catalog is cut into
     splits of whole 128-item tiles so that (user tiles of 128) x (splits)
-    gives about _TOPK_WAVES blocks an SM; every split is non-empty."""
+    gives at most ``waves`` blocks an SM (the blocks resident together:
+    1 on the wgmma path, 2 on the mma.sync path) where the catalog has the
+    tiles for it; every split is non-empty."""
     tiles = _cdiv(I, _TOPK_TILE_I)
     user_tiles = _cdiv(B, _TOPK_TILE_U)
-    splits = max(1, min(tiles, _cdiv(_TOPK_WAVES * num_sms, user_tiles)))
+    splits = max(1, min(tiles, waves * num_sms // user_tiles))
     per_split = _cdiv(tiles, splits) * _TOPK_TILE_I
     return _cdiv(I, per_split), per_split
+
+
+# per device: the (capacity,) int64 words through which a launch's catalog
+# splits share each user's threshold (csrc/fused_topk.cu shared_word), zeroed
+# once, and the epoch of the last launch. A word of an earlier launch loses
+# to one of the current launch and is read as no threshold, so nothing is
+# cleared between launches; two launches must not share an epoch (as a CUDA
+# graph replaying one launch would: the port captures none)
+_topk_shared: dict = {}
+_topk_shared_lock = threading.Lock()
+
+
+def _topk_thresholds(dev: torch.device, B: int) -> Tuple[torch.Tensor, int]:
+    """The shared-threshold words for B users on ``dev`` and this launch's
+    epoch (1 to 2**31 - 1; the words are zeroed again when it wraps)."""
+    with _topk_shared_lock:
+        words, epoch = _topk_shared.get(dev, (None, 0))
+        if words is None or words.numel() < B:
+            words, epoch = torch.zeros(max(B, 1024), dtype=torch.int64,
+                                       device=dev), 0
+        epoch += 1
+        if epoch >= 2**31:
+            words.zero_()
+            epoch = 1
+        _topk_shared[dev] = (words, epoch)
+        return words, epoch
 
 
 def _fused_topk_launch(z, W, b_prime, rated, k: int, csr: bool):
@@ -267,21 +304,33 @@ def _fused_topk_launch(z, W, b_prime, rated, k: int, csr: bool):
     # the merge kernel writes every slot
     out_v = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
-    splits, per_split = fused_topk_grid(B, I, _num_sms(dev.index or 0))
+    waves = 1 if fused_topk_path(D) == "wgmma" else 2
+    splits, per_split = fused_topk_grid(B, I, _num_sms(dev.index or 0),
+                                        waves)
     part_v = torch.empty((B, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((B, splits, k), dtype=torch.int32, device=dev)
-    # the widest copy of z and W rows (16, 8 or 4 bytes) that D and both
-    # pointers allow
+    # the mma.sync path's widest copy of z and W rows (16, 8 or 4 bytes)
+    # that D and both pointers allow
     zp, wp = z.data_ptr(), W.data_ptr()
     vec = next(v for v in (4, 2, 1)
                if D % v == 0 and zp % (4 * v) == 0 and wp % (4 * v) == 0)
+    words, epoch = _topk_thresholds(dev, B)
     rc = getattr(cuda_lib.lib(), entry)(
         zp, wp, b_prime.data_ptr(), rated.data_ptr(),
         *extra, part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
-        out_i.data_ptr(), B, I, D, k, splits, per_split, vec, _stream(dev),
+        out_i.data_ptr(), B, I, D, k, splits, per_split, vec,
+        words.data_ptr(), epoch, _stream(dev),
     )
     cuda_lib.check(rc, entry)
     return out_i, out_v
+
+
+def _count_topk(wrapper, D: int) -> None:
+    """Count a launch of B5 or B6: in ``launches`` and in the count of the
+    path it took (``launches_wgmma``, ``launches_mma_sync``)."""
+    wrapper.launches += 1
+    name = "launches_" + fused_topk_path(D)
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def fused_topk_scores_plain(z, W, b_prime, rated_rows, k: int = 10,
@@ -312,11 +361,13 @@ def fused_topk_scores(
     if not _on_cuda(z):
         return fused_topk_scores_plain(z, W, b_prime, rated_rows, k, block)
     ids, vals = _fused_topk_launch(z, W, b_prime, rated_rows, k, csr=False)
-    fused_topk_scores.launches += 1
+    _count_topk(fused_topk_scores, z.shape[1])
     return _neg_tail(ids, vals, W.shape[0], block)
 
 
 fused_topk_scores.launches = 0
+fused_topk_scores.launches_wgmma = 0
+fused_topk_scores.launches_mma_sync = 0
 
 
 def _csr_overflow(rated_items: torch.Tensor, num_items: int, block: int,
@@ -371,11 +422,13 @@ def fused_topk_scores_csr(
         return fused_topk_scores_csr_plain(z, W, b_prime, rated_items, k,
                                            block, w)
     ids, vals = _fused_topk_launch(z, W, b_prime, rated_items, k, csr=True)
-    fused_topk_scores_csr.launches += 1
+    _count_topk(fused_topk_scores_csr, z.shape[1])
     return _csr_tail(ids, vals, rated_items, W.shape[0], block, w)
 
 
 fused_topk_scores_csr.launches = 0
+fused_topk_scores_csr.launches_wgmma = 0
+fused_topk_scores_csr.launches_mma_sync = 0
 
 
 # ------------------------------------------------------------ uniforms ------

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels of cdae_tpu_torch against their plain
 PyTorch versions, on a GPU, at ragged shapes: the serving kernels (decode,
-fused top-k at the edges of their tiles, equal scores included), the
+fused top-k at the edges of their tiles, equal scores included, unaligned
+views on both of its paths, full candidate buffers, and B6 at the 1M-item
+serving request), the
 training kernels (hw_uniform and adagrad_update bit for bit, the latter
 also as one launch over a list of tables, once a training step; the fused
 step within f32 summation-order tolerance and bit-equal run to run), the WARP
@@ -200,19 +202,99 @@ def _both_topk(dev, z, W, bp, rated, K):
     (130, 1000, 3, 1), (257, 5001, 9, 32), (130, 5001, 50, 10),
     (129, 1000, 64, 32), (257, 1000, 50, 1), (300, 2000, 100, 10),
     (70, 777, 200, 32), (1, 129, 64, 32), (3, 130, 65, 10),
+    (130, 1001, 50, 10), (130, 1001, 56, 32), (200, 3001, 64, 10),
+    (129, 1001, 65, 10), (130, 1001, 200, 1),
 ])
 def test_fused_topk_kernel_tile_edges(cuda, rng_np, B, I, D, K):
     """B5 and B6 at the edges of their tiles: B off the 128-row user tile,
-    I off the 128-item tile, D from 3 to 200 (all of D staged once up to
-    64, 32-wide chunks above), k = 1 and 32; a row with 100 rated items in
-    one tile, one with 3 unrated items, one with none rated. Ids equal the
-    plain version's, scores to rtol 1e-5 and atol 1e-4 (f32-level error of
-    3xTF32 on N(0, 1) operands)."""
+    I off the 128-item tile (I = 1001: the last tile's copy, 41 rows of
+    D = 50, is 8,200 bytes, no multiple of 16), D from 3 to 200 (the
+    wgmma path up to 64, the mma.sync path's 32-wide chunks above), k = 1
+    and 32; a row with 100 rated items in one tile, one with 3 unrated
+    items, one with none rated. Ids equal the plain version's, scores to
+    rtol 1e-5 and atol 1e-4 (f32-level error of 3xTF32 on N(0, 1)
+    operands)."""
     z, W, bp = _problem(rng_np, B, D, I)
     rated = _rated_sets(rng_np, B, I, 300)
     for got, want in _both_topk(cuda, z, W, bp, rated, K):
         torch.testing.assert_close(got[0], want[0])
         torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,path", [(50, "wgmma"), (64, "wgmma"),
+                                    (65, "mma_sync"), (200, "mma_sync")])
+def test_fused_topk_kernel_unaligned_views(cuda, rng_np, D, path):
+    """z, W and b' as views 4 bytes past a 16-byte boundary
+    (``reshape(-1)[1:]``): the wgmma path's bulk copies widen to the
+    boundaries around their bytes and skip the first 4, the mma.sync
+    path takes 4-byte copies; ids equal the plain version's on both modes,
+    and each launch is counted on the path its D takes."""
+    B, I, K = 130, 2001, 10
+    zf, Wf, bpf = _on(cuda, *_problem(rng_np, B * D + 1, 1, I * D + 1))
+    z = zf.reshape(-1)[1:].reshape(B, D)
+    W = Wf.reshape(-1)[1:].reshape(I, D)
+    bp = bpf[1:I + 1]
+    assert W.data_ptr() % 16 == 4 and bp.data_ptr() % 16 == 4
+    rated = _rated_sets(rng_np, B, I, 300)
+    rt, rowst = _on(cuda, rated, _dense_rows(rated, I))
+    assert P.fused_topk_path(D) == path
+    for fn, plain, r in (
+            (P.fused_topk_scores, P.fused_topk_scores_plain, rowst),
+            (P.fused_topk_scores_csr, P.fused_topk_scores_csr_plain, rt)):
+        before = (fn.launches, getattr(fn, "launches_" + path))
+        ids, vals = fn(z, W, bp, r, k=K)
+        want = plain(z, W, bp, r, k=K)
+        torch.cuda.synchronize()
+        assert (fn.launches, getattr(fn, "launches_" + path)) == (
+            before[0] + 1, before[1] + 1)
+        torch.testing.assert_close(ids, want[0])
+        torch.testing.assert_close(vals, want[1], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [50, 200])
+def test_fused_topk_kernel_candidates_overflow(cuda, rng_np, D):
+    """k = 32 where a tile after the first of its split (items 512 to
+    639; splits of 5 and 3 tiles on the two paths) holds every row's best
+    128 scores (its W rows positive and 100x): each row's pushes overflow
+    its 32 candidate slots four times over, and the retries after each
+    merge keep the exact top 32 (ids equal, scores to rtol 1e-5)."""
+    B, I, K = 130, 40_000, 32
+    z, W, bp = _problem(rng_np, B, D, I)
+    z = np.abs(z)  # every user scores the hot tile's rows high
+    W[512:640] = np.abs(W[512:640]) * 100.0
+    rated = _rated_sets(rng_np, B, I, 50)
+    for got, want in _both_topk(cuda, z, W, bp, rated, K):
+        torch.testing.assert_close(got[0], want[0])
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_fused_topk_csr_kernel_at_the_serving_shape(cuda):
+    """B6 at cdae_1m.serve_batch's request, (1,024, 1e6, 50) with rows of
+    1 to 2,048 rated items, on the wgmma path with its production grid:
+    64 sampled users' lists equal the plain streaming scan's on those
+    users (ids equal, scores to rtol 1e-5 and atol 1e-4)."""
+    B, I, D, K = 1024, 1_000_000, 50, 10
+    g = torch.Generator(device=cuda).manual_seed(23)
+    z = torch.rand(B, D, generator=g, device=cuda)
+    W = torch.randn(I, D, generator=g, device=cuda) * 0.1
+    bp = torch.randn(I, generator=g, device=cuda) * 0.1
+    lengths = torch.randint(1, 2049, (B,), generator=g, device=cuda)
+    ids = torch.randint(0, I, (B, 2048), generator=g, device=cuda)
+    live = torch.arange(2048, device=cuda)[None, :] < lengths[:, None]
+    rated = torch.where(live, ids, I).sort(dim=1).values.to(torch.int32)
+    before = P.fused_topk_scores_csr.launches_wgmma
+    got_ids, got_vals = P.fused_topk_scores_csr(z, W, bp, rated, k=K)
+    torch.cuda.synchronize()
+    assert P.fused_topk_scores_csr.launches_wgmma == before + 1
+    users = torch.randperm(B, generator=g, device=cuda)[:64]
+    want = P.fused_topk_scores_csr_plain(z[users], W, bp,
+                                         rated[users].contiguous(), k=K)
+    torch.testing.assert_close(got_ids[users], want[0])
+    torch.testing.assert_close(got_vals[users], want[1], rtol=1e-5,
+                               atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -232,3 +232,35 @@ def test_fused_topk_grid(B, I, sms):
         assert user_tiles * splits >= 2 * sms - user_tiles
     if (B, I, sms) == (1024, 1_000_000, 132):
         assert (splits, per_split) == (33, 237 * 128)
+
+
+@pytest.mark.parametrize("B,I,sms", [
+    (1024, 1_000_000, 132), (256, 1_000_000, 132), (1, 1, 132),
+    (1024, 3706, 132), (20000, 1_000_000, 132), (129, 200, 8),
+    (70, 5000, 1), (5, 7, 132),
+])
+def test_fused_topk_grid_one_block_an_sm(B, I, sms):
+    """The wgmma path's grid (one block an SM): never more blocks than
+    SMs where the user tiles fit on the card, so that every block is
+    resident at once and the blocks that share a split read it together."""
+    splits, per_split = P.fused_topk_grid(B, I, sms, waves=1)
+    assert per_split % 128 == 0 and per_split > 0
+    assert (splits - 1) * per_split < I <= splits * per_split
+    user_tiles = -(-B // 128)
+    tiles = -(-I // 128)
+    if user_tiles <= sms:
+        assert user_tiles * splits <= sms
+    if tiles >= sms:
+        assert user_tiles * splits > sms - user_tiles or splits == 1
+    if (B, I, sms) == (1024, 1_000_000, 132):
+        assert (splits, per_split) == (16, 489 * 128)
+
+
+@pytest.mark.parametrize("D,path", [(1, "wgmma"), (50, "wgmma"),
+                                    (64, "wgmma"), (65, "mma_sync"),
+                                    (200, "mma_sync")])
+def test_fused_topk_path_by_width(D, path):
+    """B5/B6 take the wgmma path while z's fragments fit the registers
+    (D <= 64) and the chunked mma.sync path above; the wrappers count
+    each launch on its path."""
+    assert P.fused_topk_path(D) == path
