@@ -165,8 +165,6 @@ def build_model(args):
         raise SystemExit(f"unknown --method {args.method}")
     dense = None if args.dense_mode == "auto" else _booly(args.dense_mode)
     cls, cfg_cls = MODEL_REGISTRY[method]
-    if cfg_cls is None:
-        return cls(device=args.device)
     if cfg_cls is SimilarityConfig:
         return cls(SimilarityConfig(sim_type=args.sim_type,
                                     topk=args.sim_topk), device=args.device)
@@ -206,6 +204,10 @@ def build_model(args):
         if method == "NEGMF":  # --dense_mode true: NegMF's slab step
             kw.update(num_neg=args.num_neg, dense_mode=dense)
         return cls(FactorModelConfig(**kw), device=args.device)
+    if cfg_cls is not CDAEConfig:
+        # no flag of cdae_tpu's sets it (POP; MULTVAE, the paper's
+        # settings): the model's own defaults
+        return cls(device=args.device)
     return cls(CDAEConfig(
         lambda_=args.lambda_, learn_rate=args.learn_rate,
         loss=args.loss_type, num_dim=args.num_dim,

@@ -2,7 +2,8 @@
 matrix-factorization family (PMF, IMF, BPR, WARP: every route), FISM /
 FISMPair (training and serving), ALS / WRMF, the neighbourhood models
 ItemCF / UserCF, the feature-group models (LinearModel, FactorModel, NegMF)
-and the Popularity baseline, with cdae_tpu's registry: the same 15 names.
+and the Popularity baseline, with cdae_tpu's registry: the same 15 names,
+and the port's own MULTVAE (Mult-VAE, models/multvae.py).
 
 ``create_model(name, **cfg)`` mirrors cdae_tpu's (the reference app's
 ``--method`` dispatch).
@@ -16,6 +17,7 @@ from cdae_tpu_torch.models.linear import (FactorModel, FactorModelConfig,
                                           LinearModel, LinearModelConfig,
                                           NegMF)
 from cdae_tpu_torch.models.mf import BPR, IMF, PMF, WARP, MFConfig
+from cdae_tpu_torch.models.multvae import MultVAE, MultVAEConfig
 from cdae_tpu_torch.models.popularity import Popularity
 from cdae_tpu_torch.models.similarity import (ItemCF, SimilarityConfig,
                                               UserCF)
@@ -36,6 +38,7 @@ MODEL_REGISTRY = {
     "ITEMCF": (ItemCF, SimilarityConfig),
     "USERCF": (UserCF, SimilarityConfig),
     "POP": (Popularity, None),
+    "MULTVAE": (MultVAE, MultVAEConfig),
 }
 
 
@@ -57,4 +60,4 @@ __all__ = ["RecsysModel", "ModelState", "MODEL_REGISTRY", "create_model",
            "FISM", "FISMPair", "FISMConfig", "ALS", "WRMF", "ALSConfig",
            "ItemCF", "UserCF", "SimilarityConfig", "LinearModel",
            "LinearModelConfig", "FactorModel", "FactorModelConfig", "NegMF",
-           "Popularity"]
+           "Popularity", "MultVAE", "MultVAEConfig"]

@@ -16,6 +16,10 @@ loops rely on; every function is elementwise over tensors of any shape, and
   SQUARED_HINGE     1.       -1.       z > 1 -> 0
 
 ``LossType.parse`` accepts the aliases CE and SQ_HINGE.
+
+Mult-VAE's multinomial log-likelihood is a loss over a whole row of the
+catalog, not an elementwise one: ``multinomial_nll`` and
+``multinomial_gradient`` below, outside the registry.
 """
 
 from __future__ import annotations
@@ -200,3 +204,27 @@ _REGISTRY = {
     LossType.SQUARED_HINGE: _loss(LossType.SQUARED_HINGE, _sq_hinge_eval,
                                   _sq_hinge_grad, _identity, 1.0, -1.0),
 }
+
+
+# -- multinomial log-likelihood over a row: l = -sum_i x_i log softmax(a)_i --
+
+def multinomial_nll(logits: torch.Tensor, items: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """(B,) -sum_i x_i log_softmax(logits)_i of binary rows x given as
+    (B, L) rated ``items``, padded (any id; ``mask`` False there)."""
+    logp = torch.log_softmax(logits, dim=1)
+    at = torch.gather(logp, 1, items.long().clamp(0, logits.shape[1] - 1))
+    return -(at * mask).sum(dim=1)
+
+
+def multinomial_gradient(logits: torch.Tensor, counts: torch.Tensor,
+                         rated: torch.Tensor, ones: torch.Tensor,
+                         scale: float) -> torch.Tensor:
+    """(B, I) d/dlogits of ``scale`` * -sum_i x_i log_softmax(logits)_i for
+    binary rows x: scale * (softmax(logits) * |x|_1 - x). ``counts`` (B,)
+    holds each row's |x|_1 and ``rated`` (P,) the flat ids b * I + i of its
+    ones, each once; ``ones`` is P ones. The softmax's slab is the
+    result."""
+    d = torch.softmax(logits, dim=1).mul_((counts * scale)[:, None])
+    return d.view(-1).index_add_(0, rated, ones, alpha=-scale).view(
+        logits.shape)

@@ -1,4 +1,5 @@
-"""AdaGrad-style updates (port of cdae_tpu/solver/optimizer.py).
+"""AdaGrad-style updates (port of cdae_tpu/solver/optimizer.py), and the
+Adam update of Mult-VAE's tables (``dense_adam_steps``, the port's own).
 
 Per-coordinate AdaGrad with accumulators initialized at 1e-4 and the step
 ``lr * g / (beta + sqrt(acc))``, accumulated over a synchronous user
@@ -95,6 +96,30 @@ def dense_adagrad_steps(
         return
     for param, _, g32 in tables:
         param.copy_(param.to(f32) - learn_rate * g32)
+
+
+def dense_adam_steps(
+    tables: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]],
+    step_count: torch.Tensor,
+    *,
+    lr: float,
+    beta1: float,
+    beta2: float,
+    eps: float,
+) -> None:
+    """One Adam update of every (param, grad, m, v) table, in place, in
+    PyTorch's form: m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2, then
+    p -= lr / (1 - b1^t) * m / (sqrt(v) / sqrt(1 - b2^t) + eps), no weight
+    decay. One ``torch._fused_adam_`` call over the tables -- the
+    multi-tensor kernel of ``torch.optim.Adam(fused=True)`` on a CUDA
+    device -- with ``step_count`` (a float32 scalar on the tables' device
+    holding t, 1 at the first update) read by every table; the caller
+    advances it."""
+    params, grads, ms, vs = (list(x) for x in zip(*tables))
+    torch._fused_adam_(params, grads, ms, vs, [], [step_count] * len(params),
+                       lr=lr, beta1=beta1, beta2=beta2, weight_decay=0.0,
+                       eps=eps, amsgrad=False, maximize=False)
 
 
 def dense_adagrad_step(

@@ -439,7 +439,7 @@ def test_unported_routes_raise(splits):
     """Nothing is left to raise naming a later slice: --sharded dispatches
     as cdae_tpu's (tests/test_torch_parallel.py), and refuses what cdae_tpu
     refuses with its words (ITEMCF below). The registry holds cdae_tpu's 15
-    names: WARP's slab, pool and scan
+    names and the port's MULTVAE: WARP's slab, pool and scan
     routes and the rest of the MF family train (their own tests:
     test_torch_warp_routes.py, test_torch_mf_zoo.py), as do B9
     (gather_mode="mxu") and B8 (the pallas scatter modes) on WARP; ALS,
@@ -464,8 +464,10 @@ def test_unported_routes_raise(splits):
                       ("fm", tlin.FactorModel)):
         assert type(tmodels.create_model(name, device="cpu")) is cls
     assert not hasattr(tmodels, "LATER_MODELS")
-    assert set(tmodels.MODEL_REGISTRY) == set(JREGISTRY)
-    assert len(tmodels.MODEL_REGISTRY) == 15
+    # every cdae_tpu model, and the port's own Mult-VAE as the one extra
+    assert set(JREGISTRY) <= set(tmodels.MODEL_REGISTRY)
+    assert set(tmodels.MODEL_REGISTRY) - set(JREGISTRY) == {"MULTVAE"}
+    assert len(JREGISTRY) == 15 and len(tmodels.MODEL_REGISTRY) == 16
     for name in ("ALS", "wrmf", "ItemCF", "USERCF"):
         assert type(tmodels.create_model(name, device="cpu")).__name__ == {
             "ALS": "ALS", "WRMF": "WRMF", "ITEMCF": "ItemCF",
